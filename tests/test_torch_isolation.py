@@ -1,0 +1,68 @@
+"""The port and chip_smoke.py import neither jax, flax nor orbslam3_tpu.
+
+The machine with the card has no jax; the test process here imports jax
+for every test (conftest.py), so a stray import would pass unnoticed. A
+fresh interpreter blocks those names with a meta-path finder and imports
+every module of the port and chip_smoke.py; an `ast` scan of the sources
+catches imports on paths that importing does not run."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "flax", "orbslam3_tpu")
+
+_CHILD = r"""
+import importlib, importlib.abc, importlib.util, pkgutil, sys
+BLOCKED = {blocked!r}
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import orbslam3_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(orbslam3_tpu_torch.__path__,
+                                               "orbslam3_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print(len(names))
+"""
+
+
+def _sources():
+    return sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_with_jax_blocked():
+    code = _CHILD.format(blocked=BLOCKED, smoke=str(ROOT / "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the slice
+
+
+def test_no_jax_import_in_sources():
+    offenders = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if n.split(".")[0] in BLOCKED]
+    assert not offenders, offenders
