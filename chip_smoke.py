@@ -12,8 +12,12 @@ EuRoC operating point (752x480, 1200 features, 8 levels, x1.2; 2048
 map-point candidates), checks the recovered pose, shows through the launch
 counters that the main path ran both kernels, and times everything with
 CUDA events (kernels by replaying a captured CUDA graph, so their device
-time is not hidden behind host launch overhead). Each phase prints one
-line with its wall seconds. The line
+time is not hidden behind host launch overhead). The timings phase also
+times K1 at the main path's shape under four masks (the main path's own,
+a random 2% one, all true, all false) and on the first 1, 32, 128 and 512
+of its candidates, each held exactly against the plain version, and the
+launch floor: a one-element op under the same graph replay. Each
+phase prints one line with its wall seconds. The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without a card.
@@ -342,11 +346,20 @@ def main() -> int:
 
     with phase("K1 masked_top2 vs plain"):
         k1_err = 0
+        # widths that straddle the kernel's 16-byte chunk and 512-byte
+        # warp step, and one wider than its 1536-byte batch, follow the
+        # tracker's shapes
         for n, mcols, seed in ((K_CANDIDATES, N_FEATURES, 1), (37, 53, 2),
-                               (2051, 1199, 3), (1, 1, 4), (64, 100, 5)):
+                               (2051, 1199, 3), (1, 1, 4), (64, 100, 5),
+                               (21, 15, 6), (21, 16, 7), (21, 17, 8), (21, 511, 9),
+                               (21, 513, 10), (9, 2100, 11)):
             a, b, mask = window_case(dev, n, mcols, seed)
             if seed == 5:
                 mask.zero_()  # every row empty
+            if seed >= 6:
+                mask[1::3] = False
+                mask[1::3, -1] = True  # the last column the only candidate
+                mask[2::6] = True      # full rows
             got = hamming.masked_top2(a, b, mask)
             ref = hamming.masked_top2_reference(a, b, mask)
             k1_err = max(k1_err, check_top2(got, ref, f"{n}x{mcols}"))
@@ -437,8 +450,8 @@ def main() -> int:
         # operations: the allowed pairs as +/-1 int8 products
         k1_bound, k1_by = bound_ms(nn * mm + 32 * (nn + mm) + 12 * nn,
                                    2 * hamming.N_BITS * int(mask.sum()))
-        pa, pb = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
-        lib = top2_library(pa, pb, mask)
+        bf_a, bf_b = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
+        lib = top2_library(bf_a, bf_b, mask)
         ref = hamming.masked_top2_reference(a, b, mask)
         has = ref[1] < hamming.BIG
         if not (torch.equal(lib[1].to(torch.int32), ref[1])
@@ -447,6 +460,7 @@ def main() -> int:
             raise AssertionError("K1 yardstick differs from the plain version")
         eager_ms[hamming.KERNEL] = cuda_ms(lambda: hamming.masked_top2(a, b, mask),
                                            KERNEL_ITERS)
+        eager_planes_ms = cuda_ms(lambda: hamming.masked_top2(pa, pb, mask), KERNEL_ITERS)
         kernels[hamming.KERNEL] = dict(
             name=hamming.KERNEL, route="cuda", source="orbslam3_tpu_torch/csrc/hamming_top2.cu",
             replaces="orbslam3_tpu/kernels/hamming_pallas.py:108",
@@ -455,7 +469,7 @@ def main() -> int:
             plain_ms=device_ms(lambda: hamming.masked_top2_reference(a, b, mask),
                                PLAIN_ITERS),
             bound_ms=k1_bound, bound_by=k1_by,
-            library_ms=device_ms(lambda: top2_library(pa, pb, mask), PLAIN_ITERS))
+            library_ms=device_ms(lambda: top2_library(bf_a, bf_b, mask), PLAIN_ITERS))
         log(f"K1 mask at the main path: ({nn},{mm}), {int(mask.sum())} candidates")
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "
@@ -464,6 +478,39 @@ def main() -> int:
                 f"(device time, CUDA graph replay); eager call through the wrapper "
                 f"{eager_ms[kv['name']] * 1e3:.2f} us; {kv['launches']} launches "
                 f"on the main path")
+        log(f"masked_top2 eager call handed +/-1 planes, as the main path does: "
+            f"{eager_planes_ms * 1e3:.2f} us")
+
+        # K1 across mask densities at the main path's shape and descriptors
+        x = torch.zeros(1, device=dev)
+        floor_ms = device_ms(lambda: x.add_(1), KERNEL_ITERS)
+        log(f"launch floor: one-element add_ {floor_ms * 1e3:.2f} us "
+            f"(device time, CUDA graph replay)")
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        for label, dmask in (("main path", mask),
+                             ("random 2%", torch.rand((nn, mm), generator=g, device=dev) < 0.02),
+                             ("all true", torch.ones((nn, mm), dtype=torch.bool, device=dev)),
+                             ("all false", torch.zeros((nn, mm), dtype=torch.bool, device=dev))):
+            check_top2(hamming.masked_top2(a, b, dmask),
+                       hamming.masked_top2_reference(a, b, dmask), f"{label} mask")
+            dbound, dby = bound_ms(nn * mm + 32 * (nn + mm) + 12 * nn,
+                                   2 * hamming.N_BITS * int(dmask.sum()))
+            log(f"masked_top2 at ({nn},{mm}), {label} mask, {int(dmask.sum())} "
+                f"candidates: device "
+                f"{device_ms(lambda: hamming.masked_top2(a, b, dmask), KERNEL_ITERS) * 1e3:.2f}"
+                f" us (bound {dbound * 1e3:.2f} us by {dby}), library "
+                f"{device_ms(lambda: top2_library(bf_a, bf_b, dmask), PLAIN_ITERS) * 1e3:.2f}"
+                f" us; exact vs plain")
+        # and over the first w of its candidates, where the launch's fixed
+        # cost outweighs the mask
+        for w in (1, 32, 128, 512):
+            bw, wmask = b[:w], torch.rand((nn, w), generator=g, device=dev) < 0.02
+            check_top2(hamming.masked_top2(a, bw, wmask),
+                       hamming.masked_top2_reference(a, bw, wmask), f"width {w} mask")
+            log(f"masked_top2 at ({nn},{w}), random 2% mask, {int(wmask.sum())} "
+                f"candidates: device "
+                f"{device_ms(lambda: hamming.masked_top2(a, bw, wmask), KERNEL_ITERS) * 1e3:.2f}"
+                f" us; exact vs plain")
 
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -13,8 +13,6 @@ words, reinterpreted) or as (N, 256) +/-1 planes.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from orbslam3_tpu_torch import _build
@@ -110,21 +108,28 @@ def masked_top2(desc_a: torch.Tensor, desc_b: torch.Tensor, mask: torch.Tensor):
             raise ValueError(f"masked_top2: {name} is on {v.device}, not {a.device}")
         if v.data_ptr() % 16:
             raise ValueError(f"masked_top2: {name} is not 16-byte aligned")
-    idx, best, second = (torch.empty(n, dtype=torch.int32, device=a.device)
-                         for _ in range(3))
-    if n == 0:
-        return idx, best, second
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.orb_masked_top2(
-            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-            ctypes.c_void_p(mask.data_ptr()), n, m,
-            ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(best.data_ptr()),
-            ctypes.c_void_p(second.data_ptr()), ctypes.c_void_p(stream))
+    out = torch.empty((3, n), dtype=torch.int32, device=a.device)
+    if n:
+        if a.device.index == torch.cuda.current_device():
+            _launch(a, b, mask, out)
+        else:
+            with torch.cuda.device(a.device):
+                _launch(a, b, mask, out)
+    idx, best, second = out
+    return idx, best, second
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """K1 on the current stream of the current device, into the rows of
+    the (3, N) int32 `out`: idx, best, second."""
+    n, m = mask.shape
+    rows = out.data_ptr()
+    rc = _build.library().orb_masked_top2(
+        a.data_ptr(), b.data_ptr(), mask.data_ptr(), n, m, rows, rows + 4 * n,
+        rows + 8 * n, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, KERNEL)
     _build.launches[KERNEL] += 1
-    return idx, best, second
 
 
 def masked_match_ratio(planes_a: torch.Tensor, planes_b: torch.Tensor,

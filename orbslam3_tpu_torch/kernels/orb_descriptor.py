@@ -143,16 +143,22 @@ def brief_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return pack_bits(v > 0)
 
 
+@functools.cache
+def _bit_weights(device: torch.device) -> torch.Tensor:
+    """(32,) int64 weight of each bit of an int32 word: 2^b, and -2^31 for
+    the sign bit, so a weighted sum of bits is the word's two's-complement
+    value, exact in int64."""
+    w = torch.tensor([1 << b for b in range(31)] + [-(1 << 31)], dtype=torch.int64)
+    return w.to(device)
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(N, 256) {0,1} -> (N, 8) int32 (bit b of word w = bit 32*w+b).
 
-    The words are the reference's uint32 words reinterpreted as int32;
-    shifts go through int64 so no sign bit is ever shifted."""
+    The words are the reference's uint32 words reinterpreted as int32."""
     n = bits.shape[0]
-    words = bits.reshape(n, 8, 32).long()
-    shifts = torch.arange(32, device=bits.device)
-    s = torch.sum(words << shifts, dim=-1)
-    return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
+    s = torch.sum(bits.reshape(n, 8, 32) * _bit_weights(bits.device), dim=-1)
+    return s.to(torch.int32)
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,20 @@ def test_top2_kernel_at_tracking_shape(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m513", "window", "wide"])
+def test_top2_kernel_uint8_mask_any_nonzero_byte(cuda, name):
+    """A uint8 mask allows a pair wherever its byte is nonzero, not only 1."""
+    a, b, mask = top2_case(name)
+    rng = np.random.default_rng(4)
+    weights = torch.from_numpy(mask * rng.integers(1, 256, mask.shape)).to(torch.uint8)
+    args = (_words_t(a), _words_t(b))
+    ref = hamming.masked_top2_reference(*args, torch.from_numpy(mask))
+    got = hamming.masked_top2(*(x.to(cuda) for x in args), weights.to(cuda))
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
 def test_top2_kernel_rejects_misaligned_words(cuda):
     w = torch.zeros(8 * 5 + 1, dtype=torch.int32, device=cuda)[1:].view(5, 8)
     with pytest.raises(ValueError, match="aligned"):

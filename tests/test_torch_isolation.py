@@ -42,7 +42,8 @@ print(len(names))
 
 
 def _sources():
-    return sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "profile_frontend.py")]
 
 
 def test_port_imports_with_jax_blocked():

@@ -70,7 +70,55 @@ def top2_case(name):
     if name == "single_column":
         a, b = random_words(rng, 9), random_words(rng, 1)
         return a, b, rng.random((9, 1)) < 0.5
+    if name == "window":  # the tracker's search, small: see window_mask
+        a, b = random_words(rng, 96), random_words(rng, 80)
+        b[40:] = b[:40]  # every tie twice
+        a[:40] = b[:40] ^ (rng.integers(0, 2, (40, 8), dtype=np.uint32) << 3)
+        return a, b, window_mask(rng, 96, 80, 752, 480)
+    if name == "all_true":
+        a, b = random_words(rng, 40), random_words(rng, 70)
+        b[35:] = b[:35]
+        return a, b, np.ones((40, 70), bool)
+    if name.startswith("m"):  # rows start on and off the 16-byte grid
+        m = int(name[1:])
+        a, b = random_words(rng, 21), random_words(rng, m)
+        mask = rng.random((21, m)) < 0.1
+        mask[5, :] = True
+        mask[6, :] = False
+        mask[7, m // 2:] = True  # a run across chunk and step boundaries
+        return a, b, mask
+    if name == "last_column":  # the only candidate is a row's last byte
+        a, b = random_words(rng, 33), random_words(rng, 47)
+        mask = np.zeros((33, 47), bool)
+        mask[::2, -1] = True
+        mask[1::4, 0] = True
+        mask[3::4] = rng.random((8, 47)) < 0.2
+        mask[32] = False
+        mask[32, -1] = True  # the mask's very last byte
+        return a, b, mask
+    if name == "wide":  # rows longer than the kernel's batch of mask bytes
+        a, b = random_words(rng, 9), random_words(rng, 2100)
+        mask = rng.random((9, 2100)) < 0.05
+        mask[2, 1400:2100] = True  # a run across the batch boundary
+        mask[4] = False
+        mask[4, -1] = True
+        return a, b, mask
     raise KeyError(name)
 
 
-CASES = ["random_unaligned", "empty_rows", "dense_half", "ties", "single_column"]
+def window_mask(rng, n, m, width, height, radius=15.0):
+    """(n, m) mask as `search_by_projection` builds it: features scattered
+    around projected map points, octave-scaled windows, and every 17th row
+    without a candidate."""
+    mp_uv = rng.random((n, 2)) * (width, height)
+    f_uv = mp_uv[rng.integers(0, n, m)] + 6 * rng.standard_normal((m, 2))
+    r = radius * 1.2 ** rng.integers(0, 8, m)
+    d2 = np.sum((mp_uv[:, None, :] - f_uv[None, :, :]) ** 2, axis=-1)
+    mask = d2 <= (r * r)[None, :]
+    mask[::17] = False
+    return mask
+
+
+CASES = ["random_unaligned", "empty_rows", "dense_half", "ties", "single_column",
+         "window", "all_true", "m15", "m16", "m17", "m511", "m513", "last_column",
+         "wide"]
