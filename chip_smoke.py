@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tracking front end on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's two main paths on one NVIDIA card.
 
 Usage, from the repository root on a machine with a card and nvcc:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `orbslam3_tpu_torch/csrc/` with one
-nvcc call, holds each kernel against its plain PyTorch version on the card,
-drives the main path (`extract_features` -> `fused_track_pose`) at the
-EuRoC operating point (752x480, 1200 features, 8 levels, x1.2; 2048
-map-point candidates), checks the recovered pose, shows through the launch
-counters that the main path ran both kernels, and times everything with
-CUDA events (kernels by replaying a captured CUDA graph, so their device
-time is not hidden behind host launch overhead). The timings phase also
-times K1 at the main path's shape under four masks (the main path's own,
-a random 2% one, all true, all false) and on the first 1, 32, 128 and 512
-of its candidates, each held exactly against the plain version, and the
-launch floor: a one-element op under the same graph replay. Each
-phase prints one line with its wall seconds. The line
-before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
-exits non-zero and prints no result; so does a machine without a card.
-It imports nothing of JAX or of the JAX package.
+nvcc call and holds each kernel against its plain PyTorch version on the
+card. Then it drives, at the EuRoC operating point (752x480, 1200
+features, 8 levels, x1.2; 2048 map-point candidates):
+
+- the tracking front end (`extract_features` -> `fused_track_pose`) on
+  one seeded frame against a back-projected map, checking the recovered
+  pose;
+- monocular SLAM (`Slam.track_monocular`) over a rendered 40-frame
+  sequence: the frame the map initialized at, the tracked share, the
+  keyframe and point counts, the Sim3-aligned ATE against the rendered
+  poses, K1's launches per matcher policy and K2's per frame, then the
+  same frames once more through the kernels' plain versions, a run that
+  must launch no kernel.
+
+Each path is driven with the launch counters set to 0 just before it and
+read just after, and fails if a kernel of the path was not launched. The
+timings phase times both kernels by replaying a captured CUDA graph (so
+their device time is not hidden behind host launch overhead) at the inputs
+the SLAM run handed them: K1 at one captured mask of each matcher policy
+(tracker, init, triangulation, fuse), each held exactly against the plain
+version, beside its library call and its byte bound; K1 also under four
+masks at the tracker's shape and at narrow widths, and the launch floor (a
+one-element op under the same replay). Each phase prints one line with its
+wall seconds. The line before the last is the kernels' JSON record; the
+last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, so
+the script exits non-zero and prints no result; so does a machine without a
+card. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -40,9 +51,16 @@ import torch.nn.functional as F
 from orbslam3_tpu_torch import _build
 from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
+from orbslam3_tpu_torch.datasets.render import orbit_sequence
+from orbslam3_tpu_torch.engine import local_mapping
+from orbslam3_tpu_torch.engine.system import Slam, SystemConfig
 from orbslam3_tpu_torch.engine.track_program import fused_track_pose
+from orbslam3_tpu_torch.engine.tracking import TrackerConfig
+from orbslam3_tpu_torch.evaluation import ate_rmse
 from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
+from orbslam3_tpu_torch.slam_map.map_state import MapConfig
+from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.vision.frame import extract_features
 
 # The operating point: __graft_entry__.py (EuRoC ORBextractor.nFeatures
@@ -67,7 +85,28 @@ AGREE_POSE_TOL = 1e-5  # kernel vs plain front end: same ops, exact kernels
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
-FRAMES = 20
+# Mono SLAM: `orbit_sequence`'s defaults (BoxScene.default(seed=7), 40
+# frames at 20 fps, a 2 m orbit around (4, 2, 9) over 1.0 rad) at 752x480,
+# the tracker and mapper at their defaults but for 1200 features. The JAX
+# package on the same images (scripts/port_mono_reference.py, CPU):
+# initialized at frame 4, tracked every later frame, 14 keyframes, 1644
+# points, Sim3-aligned ATE 0.01877 m. The port may initialize on other
+# RANSAC draws and sums in another order, so its ATE is held to that
+# number times ATE_MARGIN.
+SLAM_FRAMES = 40
+REFERENCE_ATE = 0.01877  # m
+ATE_MARGIN = 3.0
+MAX_INIT_FRAME = 10
+TRACKED_SHARE = 0.8      # of the frames from the init frame on
+# kernel vs plain SLAM runs: the kernels are exact and the port sums in a
+# fixed order (BA's segment sums), so the runs agree exactly on the card
+# (three runs on an H100 agreed bit for bit); the init frame, keyframe and
+# point counts must agree, camera centres within this (m), 10x under what
+# one flipped keyframe decision moves them
+AGREE_CENTRE_TOL = 1e-4
+POLICIES = ("tracker", "init", "triangulation", "fuse")
+
+FRAMES = 10
 KERNEL_ITERS = 200
 PLAIN_ITERS = 20
 
@@ -216,14 +255,16 @@ def pose_error(R, t, R_true, t_true) -> tuple[float, float]:
 
 
 @contextlib.contextmanager
-def capture(module, name: str):
-    """Record the arguments of every call of `module.name` in the block."""
+def capture(module, name: str, keep=lambda args, kwargs: True):
+    """Record the arguments of every call of `module.name` in the block
+    for which `keep(args, kwargs)` holds."""
     calls = []
     fn = getattr(module, name)
 
-    def recorder(*args):
-        calls.append(args)
-        return fn(*args)
+    def recorder(*args, **kwargs):
+        if keep(args, kwargs):
+            calls.append((args, kwargs))
+        return fn(*args, **kwargs)
 
     setattr(module, name, recorder)
     try:
@@ -232,11 +273,26 @@ def capture(module, name: str):
         setattr(module, name, fn)
 
 
+def first_per(key):
+    """A `capture` filter that keeps the first call of each `key(args,
+    kwargs)`."""
+    seen = set()
+
+    def keep(args, kwargs):
+        k = key(args, kwargs)
+        if k in seen:
+            return False
+        seen.add(k)
+        return True
+
+    return keep
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the main path through the kernels' plain PyTorch versions."""
     saved = hamming.masked_top2, patch.gather_patches
-    hamming.masked_top2 = lambda a, b, m: hamming.masked_top2_reference(
+    hamming.masked_top2 = lambda a, b, m, policy=None: hamming.masked_top2_reference(
         hamming._as_words(a), hamming._as_words(b), m)
     patch.gather_patches = patch.gather_patches_reference
     try:
@@ -296,6 +352,121 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound(n: int, m: int, candidates: int) -> tuple[float, str]:
+    """K1's bound: bytes of the mask, both descriptor sets and three (N,)
+    outputs; operations: the allowed pairs as +/-1 int8 products."""
+    return bound_ms(n * m + 32 * (n + m) + 12 * n, 2 * hamming.N_BITS * candidates)
+
+
+def k1_times(a, b, mask) -> dict:
+    """K1 on packed words and a mask, held exactly against its plain
+    version and timed: kernel and library call by CUDA-graph replay, the
+    plain version (which reads the allowed pairs' positions back to the
+    host) eagerly with CUDA events."""
+    ref = hamming.masked_top2_reference(a, b, mask)
+    check_top2(hamming.masked_top2(a, b, mask), ref, f"mask {tuple(mask.shape)}")
+    pa, pb = desc_k.descriptor_planes(a), desc_k.descriptor_planes(b)
+    bf_a, bf_b = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
+    lib = top2_library(bf_a, bf_b, mask)
+    has = ref[1] < hamming.BIG
+    if not (torch.equal(lib[1].to(torch.int32), ref[1])
+            and torch.equal(lib[2].to(torch.int32), ref[2])
+            and torch.equal(lib[0][has].to(torch.int32), ref[0][has])):
+        raise AssertionError("K1 yardstick differs from the plain version")
+    n, m = mask.shape
+    cand = int(mask.sum())
+    bnd, by = k1_bound(n, m, cand)
+    return dict(candidates=cand, density=cand / (n * m),
+                ms=device_ms(lambda: hamming.masked_top2(a, b, mask), KERNEL_ITERS),
+                plain_ms=cuda_ms(lambda: hamming.masked_top2_reference(a, b, mask),
+                                 PLAIN_ITERS),
+                plain_timed_by="eager calls, CUDA events",
+                bound_ms=bnd, bound_by=by,
+                library_ms=device_ms(lambda: top2_library(bf_a, bf_b, mask), PLAIN_ITERS))
+
+
+def k2_times(atlas, y0, x0) -> dict:
+    """K2 timed at its inputs; bytes: the pixels the patches cover, the
+    corners, the patches out."""
+    if not torch.equal(patch.gather_patches(atlas, y0, x0),
+                       patch.gather_patches_reference(atlas, y0, x0)):
+        raise AssertionError("K2 differs from its plain version")
+    n = y0.numel()
+    cover = torch.zeros(atlas.shape, dtype=torch.bool, device=atlas.device)
+    r = torch.arange(patch.PATCH, device=atlas.device)
+    cover[(torch.clamp(y0.long(), 0, atlas.shape[0] - 32)[:, None] + r)[:, :, None],
+          (torch.clamp(x0.long(), 0, atlas.shape[1] - 32)[:, None] + r)[:, None, :]] = True
+    bnd, by = bound_ms(4 * int(cover.sum()) + 8 * n + 4 * n * 1024, 0)
+    return dict(ms=device_ms(lambda: patch.gather_patches(atlas, y0, x0), KERNEL_ITERS),
+                plain_ms=device_ms(lambda: patch.gather_patches_reference(atlas, y0, x0),
+                                   PLAIN_ITERS),
+                plain_timed_by="CUDA-graph replay",
+                bound_ms=bnd, bound_by=by,
+                library_ms=device_ms(lambda: patch_library(atlas, y0, x0), PLAIN_ITERS))
+
+
+def trajectory_ate(poses, R_gt, t_gt, stamps) -> float:
+    """Sim3-aligned ATE of `Slam._full_poses` against the rendered poses."""
+    idx = [int(np.argmin(np.abs(stamps - p[0]))) for p in poses]
+    est = np.asarray([p[2] for p in poses], np.float64)
+    gt = np.asarray([-R_gt[i].T @ t_gt[i] for i in idx], np.float64)
+    return ate_rmse(est, gt, with_scale=True)
+
+
+def mono_slam(imgs, stamps, camera: Camera, plain: bool = False) -> dict:
+    """`Slam.track_monocular` over the frames on the card, launch counters
+    set to 0 just before and read just after. The kernel run also keeps
+    the first K1 input of each matcher policy (as packed words and mask)
+    and the first K2 input. With `plain`, the kernels' plain versions run
+    instead."""
+    cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
+                       tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
+                                             scale_factor=SCALE))
+    slam = Slam(camera, cfg)  # the card: the default device
+    kf_ms = []
+    process = local_mapping.LocalMapper.process_keyframe
+
+    def timed_process(mapper, k, abort=None):
+        t0 = time.perf_counter()
+        process(mapper, k, abort)
+        torch.cuda.synchronize()
+        kf_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tracked, frame_ms = [], []
+    local_mapping.LocalMapper.process_keyframe = timed_process
+    try:
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            else:
+                k1_calls = stack.enter_context(capture(
+                    hamming, "masked_top2", first_per(lambda args, kw: kw.get("policy"))))
+                k2_calls = stack.enter_context(capture(
+                    patch, "gather_patches", first_per(lambda args, kw: None)))
+            torch.cuda.synchronize()
+            timing.reset()
+            timing.enable(not plain)
+            _build.launches.clear()
+            for im, ts in zip(imgs, stamps):
+                t0 = time.perf_counter()
+                tracked.append(slam.track_monocular(im, float(ts)) is not None)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(_build.launches)
+    finally:
+        local_mapping.LocalMapper.process_keyframe = process
+        timing.enable(False)
+    m = slam.trackers[0].map
+    out = dict(tracked=tracked, init=tracked.index(True) if any(tracked) else -1,
+               keyframes=m.n_keyframes, points=m.n_points, poses=slam._full_poses(),
+               launches=launches, frame_ms=frame_ms, kf_ms=kf_ms, stages=timing.stats())
+    if not plain:
+        out["k1_inputs"] = {kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
+                            for (a, b, mk), kw in k1_calls}
+        out["k2_input"] = k2_calls[0][0]
+    return out
 
 
 def main() -> int:
@@ -377,7 +548,7 @@ def main() -> int:
         mp = make_map(feats, camera, R_true, t_true, K_CANDIDATES, SEED + 2)
         ok, res = track(feats, mp, camera, R_pred, t_pred)
         torch.cuda.synchronize()
-        main_launches = dict(_build.launches)
+        front_launches = dict(_build.launches)
         n_valid = int(feats.valid.sum())
         nm = int(res["nm"])
         rot_err, trans_err = pose_error(res["R"], res["t"], R_true, t_true)
@@ -386,15 +557,15 @@ def main() -> int:
         log(f"features {n_valid}/{N_FEATURES} valid; tracked={ok} matches {nm} "
             f"inliers {int(res['n_in'])} planted-correct {int(right.sum())}/{int(mask.sum())}; "
             f"rot err {rot_err:.3e} rad, trans err {trans_err:.3e} m")
-        log(f"launches on the main path: {json.dumps(main_launches, sort_keys=True)}")
+        log(f"launches on the front-end path: {json.dumps(front_launches, sort_keys=True)}")
         if not ok or nm < MATCH_SHARE * n_valid:
             raise AssertionError(f"tracking failed: ok={ok} matches {nm} of {n_valid}")
         if rot_err > ROT_TOL or trans_err > TRANS_TOL:
             raise AssertionError(f"pose error {rot_err} rad / {trans_err} m over "
                                  f"{ROT_TOL} / {TRANS_TOL}")
         for name in (patch.KERNEL, hamming.KERNEL):
-            if main_launches.get(name, 0) < 1:
-                raise AssertionError(f"kernel {name} was not launched on the main path")
+            if front_launches.get(name, 0) < 1:
+                raise AssertionError(f"kernel {name} was not launched on the front-end path")
 
         with plain_kernels():
             feats_p = extract_features(img, n_features=N_FEATURES, n_levels=N_LEVELS,
@@ -410,91 +581,125 @@ def main() -> int:
         log(f"kernel vs plain front end on the card: features identical, "
             f"matches {nm} vs {int(res_p['nm'])}, max pose diff {d_pose:.3e}")
 
+    with phase("mono SLAM at full width"):
+        t0 = time.perf_counter()
+        imgs, R_gt, t_gt, stamps = orbit_sequence(SLAM_FRAMES, W, H, CAMERA)
+        log(f"rendered {SLAM_FRAMES} frames at {W}x{H} in {time.perf_counter() - t0:.2f} s")
+        run = mono_slam(imgs, stamps, camera)
+        slam_launches = run["launches"]
+        init = run["init"]
+        after = run["tracked"][init:] if init >= 0 else []
+        share = sum(after) / max(len(after), 1)
+        ate = trajectory_ate(run["poses"], R_gt, t_gt, stamps)
+        log(f"initialized at frame {init}; tracked {sum(after)}/{len(after)} frames "
+            f"from there ({share:.3f}); {run['keyframes']} keyframes, {run['points']} "
+            f"points; ATE {ate:.5f} m over {len(run['poses'])} poses (bound "
+            f"{REFERENCE_ATE * ATE_MARGIN:.5f} m = JAX package's {REFERENCE_ATE} m x "
+            f"{ATE_MARGIN})")
+        log(f"launches on the mono SLAM path: {json.dumps(slam_launches, sort_keys=True)}")
+        frame_ms, kf_ms = np.asarray(run["frame_ms"]), np.asarray(run["kf_ms"])
+        log(f"track_monocular ms/frame over {len(frame_ms)} frames: p50 "
+            f"{np.percentile(frame_ms, 50):.1f}, p90 {np.percentile(frame_ms, 90):.1f}, "
+            f"max {frame_ms.max():.1f}; local mapping ms/keyframe over {len(kf_ms)}: "
+            f"p50 {np.percentile(kf_ms, 50):.1f}, max {kf_ms.max():.1f} "
+            f"(host wall clock, synchronized; {smi})")
+        for name, st in sorted(run["stages"].items()):
+            log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
+                f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock; "
+                f"each stage ends in a host read of its result)")
+        if not 0 <= init <= MAX_INIT_FRAME:
+            raise AssertionError(f"the map initialized at frame {init}, not by "
+                                 f"{MAX_INIT_FRAME}")
+        if share < TRACKED_SHARE:
+            raise AssertionError(f"tracked {share:.3f} of the frames after init")
+        if not ate <= REFERENCE_ATE * ATE_MARGIN:
+            raise AssertionError(f"ATE {ate} m over {REFERENCE_ATE * ATE_MARGIN} m")
+        if slam_launches.get(patch.KERNEL, 0) != SLAM_FRAMES:
+            raise AssertionError(f"K2 launched {slam_launches.get(patch.KERNEL, 0)} "
+                                 f"times over {SLAM_FRAMES} frames")
+        for pol in POLICIES:
+            if slam_launches.get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
+                raise AssertionError(f"K1 was not launched by the {pol} policy")
+
+        plain = mono_slam(imgs, stamps, camera, plain=True)
+        if any(plain["launches"].values()):
+            raise AssertionError(f"the plain-kernel SLAM run launched kernels: "
+                                 f"{json.dumps(plain['launches'], sort_keys=True)}")
+        d_centre = max(float(np.abs(a[2] - b[2]).max())
+                       for a, b in zip(run["poses"], plain["poses"]))
+        log(f"kernel vs plain SLAM on the card: init frame {init} vs {plain['init']}, "
+            f"keyframes {run['keyframes']} vs {plain['keyframes']}, points "
+            f"{run['points']} vs {plain['points']}, max camera-centre diff "
+            f"{d_centre:.3e} m")
+        if (plain["init"] != init or plain["keyframes"] != run["keyframes"]
+                or plain["points"] != run["points"]
+                or len(plain["poses"]) != len(run["poses"]) or d_centre > AGREE_CENTRE_TOL):
+            raise AssertionError("kernel and plain SLAM runs disagree")
+
     with phase("timings"):
         extract_ms = median_frame_ms(lambda: extract_features(
             img, n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE))
         track_ms = median_frame_ms(lambda: track(feats, mp, camera, R_pred, t_pred))
-        log(f"extract_features {extract_ms:.3f} ms/frame, fused_track_pose "
+        log(f"front end: extract_features {extract_ms:.3f} ms/frame, fused_track_pose "
             f"{track_ms:.3f} ms/frame (median of {FRAMES} frames)")
 
-        # each kernel at the inputs the main path hands it on this frame
-        with capture(patch, "gather_patches") as k2_calls, \
-                capture(hamming, "masked_top2") as k1_calls:
-            track(extract_features(img, n_features=N_FEATURES, n_levels=N_LEVELS,
-                                   scale=SCALE), mp, camera, R_pred, t_pred)
-        atlas, y0, x0 = k2_calls[0]
-        n = y0.numel()
-        cover = torch.zeros(atlas.shape, dtype=torch.bool, device=dev)
-        r = torch.arange(patch.PATCH, device=dev)
-        cover[(torch.clamp(y0.long(), 0, atlas.shape[0] - 32)[:, None] + r)[:, :, None],
-              (torch.clamp(x0.long(), 0, atlas.shape[1] - 32)[:, None] + r)[:, None, :]] = True
-        # bytes: the pixels the patches cover, the corners, the patches out
-        k2_bound, k2_by = bound_ms(4 * int(cover.sum()) + 8 * n + 4 * n * 1024, 0)
-        eager_ms = {patch.KERNEL: cuda_ms(lambda: patch.gather_patches(atlas, y0, x0),
-                                          KERNEL_ITERS)}
+        # each kernel at inputs the SLAM run handed it
+        atlas, y0, x0 = run["k2_input"]
         kernels[patch.KERNEL] = dict(
             name=patch.KERNEL, route="cuda", source="orbslam3_tpu_torch/csrc/patch_gather.cu",
             replaces="orbslam3_tpu/kernels/patch_pallas.py:91",
-            launches=main_launches.get(patch.KERNEL, 0), max_abs_err=k2_err,
-            ms=device_ms(lambda: patch.gather_patches(atlas, y0, x0), KERNEL_ITERS),
-            plain_ms=device_ms(lambda: patch.gather_patches_reference(atlas, y0, x0),
-                               PLAIN_ITERS),
-            bound_ms=k2_bound, bound_by=k2_by,
-            library_ms=device_ms(lambda: patch_library(atlas, y0, x0), PLAIN_ITERS))
-
-        # K1: the first (narrow-window) search of the frame
-        pa, pb, mask = k1_calls[0]
-        a, b = hamming._as_words(pa), hamming._as_words(pb)
-        nn, mm = mask.shape
-        # bytes: the mask, both descriptor sets, three (N,) outputs;
-        # operations: the allowed pairs as +/-1 int8 products
-        k1_bound, k1_by = bound_ms(nn * mm + 32 * (nn + mm) + 12 * nn,
-                                   2 * hamming.N_BITS * int(mask.sum()))
-        bf_a, bf_b = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
-        lib = top2_library(bf_a, bf_b, mask)
-        ref = hamming.masked_top2_reference(a, b, mask)
-        has = ref[1] < hamming.BIG
-        if not (torch.equal(lib[1].to(torch.int32), ref[1])
-                and torch.equal(lib[2].to(torch.int32), ref[2])
-                and torch.equal(lib[0][has].to(torch.int32), ref[0][has])):
-            raise AssertionError("K1 yardstick differs from the plain version")
-        eager_ms[hamming.KERNEL] = cuda_ms(lambda: hamming.masked_top2(a, b, mask),
-                                           KERNEL_ITERS)
-        eager_planes_ms = cuda_ms(lambda: hamming.masked_top2(pa, pb, mask), KERNEL_ITERS)
+            launches=slam_launches.get(patch.KERNEL, 0),
+            launches_front_end=front_launches.get(patch.KERNEL, 0),
+            max_abs_err=k2_err, **k2_times(atlas, y0, x0))
+        policies = []
+        for pol in POLICIES:
+            a, b, mask = run["k1_inputs"][pol]
+            rec = k1_times(a, b, mask)
+            policies.append(dict(policy=pol, shape=list(mask.shape), **rec))
+            log(f"masked_top2 at the {pol} policy's mask {tuple(mask.shape)}: "
+                f"{rec['candidates']} candidates ({rec['density'] * 100:.3f}%), device "
+                f"{rec['ms'] * 1e3:.2f} us (bound {rec['bound_ms'] * 1e3:.2f} us by "
+                f"{rec['bound_by']}), plain {rec['plain_ms'] * 1e3:.2f} us, library "
+                f"{rec['library_ms'] * 1e3:.2f} us; exact vs plain; "
+                f"{slam_launches.get(f'{hamming.KERNEL}[{pol}]', 0)} launches")
+        k1 = {k: v for k, v in policies[0].items()
+              if k in ("ms", "plain_ms", "plain_timed_by", "bound_ms", "bound_by",
+                       "library_ms")}
         kernels[hamming.KERNEL] = dict(
             name=hamming.KERNEL, route="cuda", source="orbslam3_tpu_torch/csrc/hamming_top2.cu",
             replaces="orbslam3_tpu/kernels/hamming_pallas.py:108",
-            launches=main_launches.get(hamming.KERNEL, 0), max_abs_err=k1_err,
-            ms=device_ms(lambda: hamming.masked_top2(a, b, mask), KERNEL_ITERS),
-            plain_ms=device_ms(lambda: hamming.masked_top2_reference(a, b, mask),
-                               PLAIN_ITERS),
-            bound_ms=k1_bound, bound_by=k1_by,
-            library_ms=device_ms(lambda: top2_library(bf_a, bf_b, mask), PLAIN_ITERS))
-        log(f"K1 mask at the main path: ({nn},{mm}), {int(mask.sum())} candidates")
+            launches=slam_launches.get(hamming.KERNEL, 0),
+            launches_front_end=front_launches.get(hamming.KERNEL, 0),
+            launches_by_policy={pol: slam_launches.get(f"{hamming.KERNEL}[{pol}]", 0)
+                                for pol in POLICIES},
+            max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "
                 f"{kv['bound_ms'] * 1e3:.2f} us by {kv['bound_by']}), plain "
-                f"{kv['plain_ms'] * 1e3:.2f} us, library {kv['library_ms'] * 1e3:.2f} us "
-                f"(device time, CUDA graph replay); eager call through the wrapper "
-                f"{eager_ms[kv['name']] * 1e3:.2f} us; {kv['launches']} launches "
-                f"on the main path")
-        log(f"masked_top2 eager call handed +/-1 planes, as the main path does: "
-            f"{eager_planes_ms * 1e3:.2f} us")
+                f"{kv['plain_ms'] * 1e3:.2f} us, library {kv['library_ms'] * 1e3:.2f} us; "
+                f"{kv['launches']} launches on the mono SLAM path")
 
-        # K1 across mask densities at the main path's shape and descriptors
+        a, b, mask = run["k1_inputs"]["tracker"]
+        pa, pb = desc_k.descriptor_planes(a), desc_k.descriptor_planes(b)
+        log(f"masked_top2 eager call handed packed words: "
+            f"{cuda_ms(lambda: hamming.masked_top2(a, b, mask), KERNEL_ITERS) * 1e3:.2f} us, "
+            f"handed +/-1 planes: "
+            f"{cuda_ms(lambda: hamming.masked_top2(pa, pb, mask), KERNEL_ITERS) * 1e3:.2f} us")
+        # K1 across mask densities at the tracker's shape and descriptors
+        nn, mm = mask.shape
         x = torch.zeros(1, device=dev)
         floor_ms = device_ms(lambda: x.add_(1), KERNEL_ITERS)
         log(f"launch floor: one-element add_ {floor_ms * 1e3:.2f} us "
             f"(device time, CUDA graph replay)")
         g = torch.Generator(device=dev).manual_seed(SEED + 3)
-        for label, dmask in (("main path", mask),
+        bf_a, bf_b = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
+        for label, dmask in (("tracker", mask),
                              ("random 2%", torch.rand((nn, mm), generator=g, device=dev) < 0.02),
                              ("all true", torch.ones((nn, mm), dtype=torch.bool, device=dev)),
                              ("all false", torch.zeros((nn, mm), dtype=torch.bool, device=dev))):
             check_top2(hamming.masked_top2(a, b, dmask),
                        hamming.masked_top2_reference(a, b, dmask), f"{label} mask")
-            dbound, dby = bound_ms(nn * mm + 32 * (nn + mm) + 12 * nn,
-                                   2 * hamming.N_BITS * int(dmask.sum()))
+            dbound, dby = k1_bound(nn, mm, int(dmask.sum()))
             log(f"masked_top2 at ({nn},{mm}), {label} mask, {int(dmask.sum())} "
                 f"candidates: device "
                 f"{device_ms(lambda: hamming.masked_top2(a, b, dmask), KERNEL_ITERS) * 1e3:.2f}"
@@ -518,7 +723,6 @@ def main() -> int:
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

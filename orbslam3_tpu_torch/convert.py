@@ -13,6 +13,7 @@ import torch
 
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.core.camera import Camera
+from orbslam3_tpu_torch.slam_map.map_state import MapConfig, MapState
 from orbslam3_tpu_torch.vision.frame import FrameFeatures
 
 
@@ -56,3 +57,32 @@ def frame_features(uv, uv_raw, response, angle, octave, desc, valid,
         octave=tensor(octave, torch.int32, device),
         desc=tensor(words_to_int32(desc), torch.int32, device),
         valid=tensor(valid, torch.bool, device))
+
+
+# The SoA arrays a map carries, copied as they are (numpy on the host).
+MAP_ARRAYS = (
+    "kf_R", "kf_t", "kf_valid", "kf_ts", "kf_frame_id", "kf_uv", "kf_octave",
+    "kf_angle", "kf_desc", "kf_feat_valid", "kf_obs_mp", "kf_prev", "kf_uid",
+    "mp_pos", "mp_desc", "mp_valid", "mp_normal", "mp_min_dist", "mp_max_dist",
+    "mp_visible", "mp_found", "mp_first_kf", "mp_ref_kf", "mp_uid",
+)
+
+
+def map_state(src, device=None) -> MapState:
+    """The port's `MapState` from a JAX `MapState` (or any object with its
+    numpy arrays and counters): keyframe poses, features, observations,
+    point positions, descriptors (uint32 words, as both maps store them),
+    normals, scale bands and counters, uids and cull anchors. The
+    covisibility product runs on `device`."""
+    c = src.cfg
+    cfg = MapConfig(max_keyframes=c.max_keyframes, max_points=c.max_points,
+                    features_per_frame=c.features_per_frame,
+                    keyframes_ceil=c.keyframes_ceil, points_ceil=c.points_ceil)
+    m = MapState(cfg, map_id=src.map_id, device=device)
+    for name in MAP_ARRAYS:
+        setattr(m, name, np.array(getattr(src, name), copy=True))
+    m._next_uid, m._next_mp_uid = int(src._next_uid), int(src._next_mp_uid)
+    m.change_index = int(src.change_index)
+    m.culled_anchor = {int(k): (int(a), np.array(R), np.array(t))
+                       for k, (a, R, t) in src.culled_anchor.items()}
+    return m

@@ -9,6 +9,10 @@ follows the tensors' device only; there is no switch.
 
 Descriptors travel as packed (N, 8) int32 words (the reference's uint32
 words, reinterpreted) or as (N, 256) +/-1 planes.
+
+Every launch adds one to `_build.launches["masked_top2"]` and, when the
+caller names its matcher policy, one to
+`_build.launches["masked_top2[<policy>]"]`.
 """
 
 from __future__ import annotations
@@ -64,32 +68,36 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 def masked_top2_reference(words_a: torch.Tensor, words_b: torch.Tensor,
                           mask: torch.Tensor):
-    """Plain version of `masked_top2` on packed words: XOR + popcount per
-    word, masked-out entries at BIG, then the same (distance, lowest column)
-    order the kernel reduces in."""
-    a = words_a.long() & 0xFFFFFFFF
-    b = words_b.long() & 0xFFFFFFFF
-    dist = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int64,
-                       device=a.device)
-    for wd in range(8):
-        dist += _popcount32(a[:, wd, None] ^ b[None, :, wd])
-    dist = torch.where(mask.bool(), dist, BIG)
-    m = dist.shape[1]
-    cols = torch.arange(m, device=dist.device)
-    best = dist.min(dim=1).values
-    idx = torch.where(dist == best[:, None], cols, m).min(dim=1).values
-    second = torch.where(cols[None, :] == idx[:, None], BIG, dist)
-    second = second.min(dim=1).values if m > 1 else torch.full_like(best, BIG)
+    """Plain version of `masked_top2` on packed words: XOR + popcount of
+    the allowed pairs only, then the same (distance, lowest column) order
+    the kernel reduces in. A row with no allowed pair gets idx 0 and
+    best == second == BIG, as a dense matrix of BIG would give."""
+    n, m = mask.shape
+    dev = words_a.device
+    rows, cols = torch.nonzero(mask.bool(), as_tuple=True)
+    a = words_a.long()[rows] & 0xFFFFFFFF
+    b = words_b.long()[cols] & 0xFFFFFFFF
+    dist = _popcount32(a ^ b).sum(dim=1)
+    big = torch.full((n,), BIG, dtype=torch.int64, device=dev)
+    best = big.scatter_reduce(0, rows, dist, reduce="amin")
+    at_best = dist == best[rows]
+    idx = torch.full((n,), m, dtype=torch.int64, device=dev).scatter_reduce(
+        0, rows, torch.where(at_best, cols, m), reduce="amin")
+    idx = torch.where(idx == m, 0, idx)
+    second = big.scatter_reduce(0, rows, torch.where(cols == idx[rows], BIG, dist),
+                                reduce="amin")
     return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
 
 
-def masked_top2(desc_a: torch.Tensor, desc_b: torch.Tensor, mask: torch.Tensor):
+def masked_top2(desc_a: torch.Tensor, desc_b: torch.Tensor, mask: torch.Tensor,
+                policy: str | None = None):
     """Masked Hamming best / runner-up match.
 
     desc_a (N, ...) and desc_b (M, ...) are packed words or +/-1 planes;
     mask (N, M) bool, True where b[j] is a candidate for a[i]. Returns
     (idx, best, second), each (N,) int32. A row with no candidate gets
     best == second == 2^20 and idx 0; ties go to the lowest column.
+    `policy` names the calling matcher policy for the launch counts.
     """
     a, b = _as_words(desc_a), _as_words(desc_b)
     n, m = a.shape[0], b.shape[0]
@@ -111,16 +119,16 @@ def masked_top2(desc_a: torch.Tensor, desc_b: torch.Tensor, mask: torch.Tensor):
     out = torch.empty((3, n), dtype=torch.int32, device=a.device)
     if n:
         if a.device.index == torch.cuda.current_device():
-            _launch(a, b, mask, out)
+            _launch(a, b, mask, out, policy)
         else:
             with torch.cuda.device(a.device):
-                _launch(a, b, mask, out)
+                _launch(a, b, mask, out, policy)
     idx, best, second = out
     return idx, best, second
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, policy: str | None) -> None:
     """K1 on the current stream of the current device, into the rows of
     the (3, N) int32 `out`: idx, best, second."""
     n, m = mask.shape
@@ -130,13 +138,22 @@ def _launch(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
         rows + 8 * n, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, KERNEL)
     _build.launches[KERNEL] += 1
+    if policy is not None:
+        _build.launches[f"{KERNEL}[{policy}]"] += 1
 
 
 def masked_match_ratio(planes_a: torch.Tensor, planes_b: torch.Tensor,
                        mask: torch.Tensor, max_dist: int = TH_LOW,
-                       ratio: float = 0.9):
+                       ratio: float = 0.9, policy: str | None = None):
     """Best match + Lowe ratio test over a candidate mask; the single entry
     point of every Search* policy. Returns (idx, best_dist, ok)."""
-    idx, best, second = masked_top2(planes_a, planes_b, mask)
+    idx, best, second = masked_top2(planes_a, planes_b, mask, policy=policy)
     ok = (best <= max_dist) & (best.float() < ratio * second.float())
     return idx, best, ok
+
+
+def mutual_filter(idx_ab: torch.Tensor, ok_ab: torch.Tensor,
+                  idx_ba: torch.Tensor) -> torch.Tensor:
+    """Cross-check: keep a->b matches whose b->a best maps back to a."""
+    back = idx_ba[idx_ab.long()]
+    return ok_ab & (back == torch.arange(idx_ab.shape[0], device=back.device))

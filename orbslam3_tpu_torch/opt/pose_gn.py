@@ -1,9 +1,9 @@
 """Pose-only optimization: fixed-iteration robust Gauss-Newton on SE(3).
 
 Port of the JAX package's `opt/pose_gn.py` (`reprojection_residuals`,
-`optimize_pose`), monocular observations: 4 rounds of 10 damped GN steps
-with Huber weights, re-normalising R and re-classifying outliers by
-chi2 > 5.991 after each round. Left-multiplicative perturbation,
+`optimize_pose`, `optimize_pose_batch`), monocular observations: 4 rounds
+of 10 damped GN steps with Huber weights, re-normalising R and
+re-classifying outliers by chi2 > 5.991 after each round. Left-multiplicative perturbation,
 T <- exp(xi) * T with xi = (rho, phi), so dXc/dxi = [I | -hat(Xc)].
 """
 
@@ -71,3 +71,53 @@ def optimize_pose(
         inlier = (valid.to(R.dtype) * (chi2 < CHI2_MONO).to(R.dtype)
                   * (xc[:, 2] > 0).to(R.dtype))
     return R, t, inlier > 0, torch.sum(inlier).to(torch.int32)
+
+
+def optimize_pose_batch(
+    R0: torch.Tensor,      # (F,3,3)
+    t0: torch.Tensor,      # (F,3)
+    points: torch.Tensor,  # (F,N,3)
+    uv: torch.Tensor,      # (F,N,2)
+    info: torch.Tensor,    # (F,N)
+    valid: torch.Tensor,   # (F,N) bool
+    camera,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+    damping: float = 1e-3,
+    device=None,
+):
+    """`optimize_pose` over a batch of frames at once (the reference vmaps
+    it; used by the export-time trajectory polish). Returns (R (F,3,3),
+    t (F,3), inliers (F,N), n_inliers (F,))."""
+    dev = device_policy.resolve(device)
+    R, t, points, uv, info, valid = (x.to(dev) for x in (R0, t0, points, uv,
+                                                         info, valid))
+    camera = camera.to(dev)
+    eye6 = torch.eye(6, dtype=R.dtype, device=dev)
+
+    def residuals(R, t):
+        xc = torch.einsum("fij,fnj->fni", R, points) + t[:, None, :]
+        res = camera.project(xc) - uv
+        Jproj = camera.project_jac(xc)
+        return res, torch.cat([Jproj, -Jproj @ lie.hat(xc)], dim=-1), xc
+
+    inlier = valid.to(R.dtype)
+    for _ in range(n_rounds):
+        for _ in range(n_iters):
+            res, J, _ = residuals(R, t)
+            chi2 = torch.sum(res * res, dim=-1) * info
+            w = robust.huber_weight(chi2, HUBER_MONO) * info * inlier
+            JW = J * w[..., None, None]
+            H = torch.einsum("fnia,fnib->fab", JW, J)
+            b = torch.einsum("fnia,fni->fa", JW, res)
+            H = H + damping * eye6 * torch.clamp(
+                torch.diagonal(H, dim1=-2, dim2=-1), min=1e-6)[:, None, :]
+            dx = -torch.linalg.solve_ex(H, b).result
+            dR, dt = lie.se3_exp(dx)
+            R, t = dR @ R, torch.einsum("fij,fj->fi", dR, t) + dt
+        R = lie.so3_normalize(R)
+        res, _, xc = residuals(R, t)
+        chi2 = torch.sum(res * res, dim=-1) * info
+        inlier = (valid.to(R.dtype) * (chi2 < CHI2_MONO).to(R.dtype)
+                  * (xc[..., 2] > 0).to(R.dtype))
+    return R, t, inlier > 0, torch.sum(inlier, dim=-1).to(torch.int32)

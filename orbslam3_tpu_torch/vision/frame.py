@@ -84,7 +84,16 @@ def extract_features(
         s_lvl[margin:lh - margin, margin:lw - margin] = \
             score[y0 + margin:y0 + lh - margin, margin:lw - margin]
         ys, xs, resp, valid = fast_k.select_uniform(s_lvl, quota, cell=cell)
-        k = ys.shape[0]
+        if ys.shape[0] < quota:
+            # a level with fewer than `quota` slots (4 per cell): pad with
+            # invalid rows at an interior pixel, so the capacity stays
+            # n_features and every level keeps the reference's layout
+            pad = quota - ys.shape[0]
+            ys = torch.cat([ys, ys.new_full((pad,), margin)])
+            xs = torch.cat([xs, xs.new_full((pad,), margin)])
+            resp = torch.cat([resp, resp.new_zeros(pad)])
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        k = quota
         # level -> level-0: the resize is centre-aligned with the true ratio
         # w/lw, so x0 = (x + 0.5) * (w/lw) - 0.5
         ys_parts.append(ys + y0)  # atlas coords

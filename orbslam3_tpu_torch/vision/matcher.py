@@ -1,13 +1,25 @@
 """Projection data association over the masked Hamming matcher.
 
-Port of `orbslam3_tpu/vision/matcher.py` (`project_points`,
-`_resolve_duplicates`, `search_by_projection`): every map point is
-projected, candidate features are the ones inside an octave-scaled pixel
-window that pass the reference's `isInFrustum` gates, and kernel K1 picks
-the best and runner-up descriptor among them.
+Port of `orbslam3_tpu/vision/matcher.py`: every policy builds a candidate
+mask and hands it to kernel K1, which picks the best and runner-up
+descriptor among the candidates.
+
+- `search_by_projection` (tracking): map points projected into the frame,
+  octave-scaled windows and the `isInFrustum` gates;
+- `search_for_initialization`: 100 px windows between two frames, both
+  directions (a mutual check), optionally the rotation histogram;
+- `search_for_triangulation`: epipolar bands between two keyframes, both
+  directions;
+- `fuse_by_projection`: a neighbour's points projected into a keyframe.
+
+Descriptors may be packed (N, 8) int32 words or (N, 256) +/-1 planes; the
+callers of the port hand words, so K1 reads them as they are stored. Each
+call names its policy for K1's launch counts.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -101,7 +113,95 @@ def search_by_projection(
         mask = mask & oct_ok
 
     idx, best, ok = ham.masked_match_ratio(mp_planes, f_planes, mask,
-                                           max_dist=max_dist, ratio=ratio)
+                                           max_dist=max_dist, ratio=ratio,
+                                           policy="tracker")
     ok = ok & vis
     keep = _resolve_duplicates(idx, best, ok, f_uv.shape[0])
     return idx, best, keep, torch.sum(keep), vis
+
+
+HISTO_LENGTH = 30  # reference ORBmatcher.cc:41 rotation histogram bins
+
+
+def rotation_consistency(ang1, ang2, idx, ok, n_bins: int = HISTO_LENGTH,
+                         top: int = 3):
+    """Dominant-orientation voting: histogram the keypoint-angle difference
+    of each match (rounded to the nearest bin), keep matches in the top-3
+    bins, where a bin also needs >= 10% of the fullest bin's votes. Angles in
+    radians; `idx` maps set-1 entries to set-2 features."""
+    two_pi = 2.0 * math.pi
+    rot = torch.remainder(ang1 - ang2[idx.long()], two_pi)
+    b = torch.remainder(torch.round(rot * (n_bins / two_pi)).to(torch.int64), n_bins)
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=ok.device)
+    hist.index_add_(0, b, ok.to(torch.int64))
+    top_vals, top_idx = torch.sort(hist, descending=True, stable=True)
+    top_vals, top_idx = top_vals[:top], top_idx[:top]
+    good = top_vals.float() >= 0.1 * top_vals[0].float()
+    keep_bin = torch.zeros(n_bins, dtype=torch.bool, device=ok.device)
+    keep_bin[top_idx] = good
+    return ok & keep_bin[b]
+
+
+def _both_ways(desc1, desc2, mask, max_dist, ratio, policy):
+    """K1 from set 1 to set 2 and back; matches that survive the mutual
+    check. Returns (idx (N1,), best (N1,), ok (N1,))."""
+    idx, best, ok = ham.masked_match_ratio(desc1, desc2, mask, max_dist=max_dist,
+                                           ratio=ratio, policy=policy)
+    idx_ba, _, _ = ham.masked_match_ratio(desc2, desc1, mask.T.contiguous(),
+                                          max_dist=max_dist, ratio=ratio,
+                                          policy=policy)
+    return idx, best, ham.mutual_filter(idx, ok, idx_ba)
+
+
+def search_for_initialization(uv1, desc1, valid1, uv2, desc2, valid2,
+                              radius: float = 100.0, max_dist: int = ham.TH_LOW,
+                              ratio: float = 0.9, ang1=None, ang2=None,
+                              check_rotation: bool = False):
+    """Frame-1 -> frame-2 matching in a wide window with a mutual check
+    (reference `SearchForInitialization`), plus the rotation histogram when
+    asked. Returns (idx, best, ok, n)."""
+    d2 = torch.sum(torch.square(uv1[:, None, :] - uv2[None, :, :]), dim=-1)
+    mask = (d2 <= radius * radius) & valid1[:, None] & valid2[None, :]
+    idx, best, ok = _both_ways(desc1, desc2, mask, max_dist, ratio, "init")
+    if check_rotation:
+        ok = rotation_consistency(ang1, ang2, idx, ok)
+    return idx, best, ok, torch.sum(ok)
+
+
+def search_for_triangulation(uv1, desc1, avail1, uv2, desc2, avail2,
+                             R1, t1, R2, t2, camera, epi_sigma: float = 2.0,
+                             max_dist: int = ham.TH_LOW):
+    """Match unassigned features of two keyframes under the epipolar
+    constraint (reference `SearchForTriangulation`, its BoW buckets replaced
+    by the masked distance matrix): a pair is a candidate when the second
+    point lies within 3.84 sigma px of the first one's epipolar line.
+    Returns (idx (N1,), ok (N1,))."""
+    R12 = R2 @ R1.T
+    t12 = t2 - R12 @ t1
+    E = lie.hat(t12) @ R12
+    x1 = camera.unproject(uv1)  # (N1,3) z=1
+    x2 = camera.unproject(uv2)
+    l2 = x1 @ E.T  # epipolar lines in image 2, normalized units
+    num = torch.abs(l2 @ x2.T)
+    den = torch.sqrt(torch.clamp(l2[:, 0] ** 2 + l2[:, 1] ** 2, min=1e-12))[:, None]
+    epi_px = num / den * camera.params[0]
+    mask = (epi_px < 3.84 * epi_sigma) & avail1[:, None] & avail2[None, :]
+    idx, _, ok = _both_ways(desc1, desc2, mask, max_dist, 0.8, "triangulation")
+    return idx, ok
+
+
+def fuse_by_projection(mp_pos, mp_desc, mp_valid, R, t, camera,
+                       f_uv, f_desc, f_octave, f_valid,
+                       radius: float = 3.0, max_dist: int = ham.TH_LOW):
+    """Project candidate map points into a keyframe and associate them with
+    features in an octave-scaled window (reference `Fuse`); the caller binds
+    free features and merges duplicates. Returns (feat_idx (K,), matched (K,))."""
+    uv, _depth, vis = project_points(R, t, camera, mp_pos)
+    vis = vis & mp_valid
+    d2 = torch.sum(torch.square(uv[:, None, :] - f_uv[None, :, :]), dim=-1)
+    r = radius * (1.2 ** f_octave.float())
+    mask = (d2 <= torch.square(r)[None, :]) & vis[:, None] & f_valid[None, :]
+    idx, best, ok = ham.masked_match_ratio(mp_desc, f_desc, mask, max_dist=max_dist,
+                                           ratio=1.0, policy="fuse")
+    ok = ok & vis
+    return idx, _resolve_duplicates(idx, best, ok, f_uv.shape[0])
