@@ -18,7 +18,14 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   keyframe and point counts, the Sim3-aligned ATE against the rendered
   poses, K1's launches per matcher policy and K2's per frame, then the
   same frames once more through the kernels' plain versions, a run that
-  must launch no kernel.
+  must launch no kernel;
+- mono-inertial SLAM (`Slam(sensor=IMU_MONOCULAR).track_monocular(...,
+  imu=...)`) over a rendered 120-frame sequence with 200 Hz IMU
+  (`vi_sequence`): the IMU initialization, the VIBA1/VIBA2 ladder, the
+  tracked share, the metric ATE (no scale alignment), the keyframe scale
+  and the gravity tilt against the rendered truth and the JAX package's
+  run on the same images, the kernels' launches, and a plain-kernel rerun
+  that must launch no kernel and agree.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
@@ -51,12 +58,14 @@ import torch.nn.functional as F
 from orbslam3_tpu_torch import _build
 from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
-from orbslam3_tpu_torch.datasets.render import orbit_sequence
+from orbslam3_tpu_torch.datasets.render import imu_batches, orbit_sequence, vi_sequence
 from orbslam3_tpu_torch.engine import local_mapping
-from orbslam3_tpu_torch.engine.system import Slam, SystemConfig
+from orbslam3_tpu_torch.engine.local_mapping import LocalMapperConfig
+from orbslam3_tpu_torch.engine.system import Sensor, Slam, SystemConfig
 from orbslam3_tpu_torch.engine.track_program import fused_track_pose
 from orbslam3_tpu_torch.engine.tracking import TrackerConfig
-from orbslam3_tpu_torch.evaluation import ate_rmse
+from orbslam3_tpu_torch.evaluation import ate_rmse, vi_metrics
+from orbslam3_tpu_torch.imu.preintegration import ImuCalib
 from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
@@ -105,6 +114,27 @@ TRACKED_SHARE = 0.8      # of the frames from the init frame on
 # one flipped keyframe decision moves them
 AGREE_CENTRE_TOL = 1e-4
 POLICIES = ("tracker", "init", "triangulation", "fuse")
+
+# Mono-inertial SLAM: `vi_sequence`'s defaults (the EuRoC writer's
+# `excited_trajectory` in BoxScene.default(seed=3): a 3 m orbit over 1.0 rad
+# with 5 cm / 0.06 rad shake, 120 frames at 20 fps, IMU at 200 Hz with
+# noise, body == camera) at 752x480 and 1200 features, `ImuCalib.create()`
+# (EuRoC's noise densities), the tracker and mapper at their defaults but
+# for the ladder's cadence, shortened for a 6 s clip as
+# tests/test_vi_golden.py shortens it. The JAX package on the same images
+# and samples (CPU):
+#     python scripts/port_vi_reference.py --frames 120 --width 752 --height 480 --features 1200
+# initialized the map at frame 6 and the IMU at frame 40 (keyframe uid 18),
+# ran VIBA1 at frame 71 and VIBA2 at frame 102 (iba_stage 2), tracked every
+# frame from init, kept 17 keyframes (77 made) and 2093 points; metric ATE
+# 0.014848 m (Sim3-aligned 0.014486 m), keyframe scale 0.99721, gravity
+# tilt 0.408 deg.
+VI_FRAMES = 120
+VI_CADENCE = dict(viba1_after_s=1.5, viba2_after_s=3.0, scale_refine_every_s=1.5)
+VI_REFERENCE = dict(iba_stage=2, ate_metric=0.014848, kf_scale=0.99721,
+                    gravity_tilt_deg=0.408)
+VI_ATE_MARGIN = 3.0       # other RANSAC draws and summation orders, as above
+VI_SCALE_FLOOR = 0.05     # |s - 1| bound: max(this, 2x the JAX package's)
 
 FRAMES = 10
 KERNEL_ITERS = 200
@@ -415,16 +445,22 @@ def trajectory_ate(poses, R_gt, t_gt, stamps) -> float:
     return ate_rmse(est, gt, with_scale=True)
 
 
-def mono_slam(imgs, stamps, camera: Camera, plain: bool = False) -> dict:
+def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> dict:
     """`Slam.track_monocular` over the frames on the card, launch counters
     set to 0 just before and read just after. The kernel run also keeps
     the first K1 input of each matcher policy (as packed words and mask)
     and the first K2 input. With `plain`, the kernels' plain versions run
-    instead."""
+    instead. With `imu` (one batch of samples a frame) the sensor is
+    IMU_MONOCULAR, and the frames at which the IMU initialized and each
+    ladder rung ran are recorded."""
     cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
                        tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
                                              scale_factor=SCALE))
+    if imu is not None:
+        cfg.sensor, cfg.imu_calib = Sensor.IMU_MONOCULAR, ImuCalib.create()
+        cfg.mapper = LocalMapperConfig(**VI_CADENCE)
     slam = Slam(camera, cfg)  # the card: the default device
+    events = {}
     kf_ms = []
     process = local_mapping.LocalMapper.process_keyframe
 
@@ -449,11 +485,18 @@ def mono_slam(imgs, stamps, camera: Camera, plain: bool = False) -> dict:
             timing.reset()
             timing.enable(not plain)
             _build.launches.clear()
-            for im, ts in zip(imgs, stamps):
+            for i, (im, ts) in enumerate(zip(imgs, stamps)):
                 t0 = time.perf_counter()
-                tracked.append(slam.track_monocular(im, float(ts)) is not None)
+                tracked.append(slam.track_monocular(
+                    im, float(ts), imu=None if imu is None else imu[i]) is not None)
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
+                m = slam.trackers[0].map
+                if m.imu_initialized and "imu_init" not in events:
+                    events["imu_init"] = (i, int(m._next_uid) - 1)
+                for stage in (1, 2):
+                    if m.iba_stage >= stage and f"viba{stage}" not in events:
+                        events[f"viba{stage}"] = i
             launches = dict(_build.launches)
     finally:
         local_mapping.LocalMapper.process_keyframe = process
@@ -461,12 +504,39 @@ def mono_slam(imgs, stamps, camera: Camera, plain: bool = False) -> dict:
     m = slam.trackers[0].map
     out = dict(tracked=tracked, init=tracked.index(True) if any(tracked) else -1,
                keyframes=m.n_keyframes, points=m.n_points, poses=slam._full_poses(),
-               launches=launches, frame_ms=frame_ms, kf_ms=kf_ms, stages=timing.stats())
+               launches=launches, frame_ms=frame_ms, kf_ms=kf_ms, stages=timing.stats(),
+               events=events, imu_initialized=m.imu_initialized, iba_stage=m.iba_stage,
+               map=m, log=[e["event"] for e in slam.events])
     if not plain:
         out["k1_inputs"] = {kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
                             for (a, b, mk), kw in k1_calls}
         out["k2_input"] = k2_calls[0][0]
     return out
+
+
+def report_times(run: dict, smi: str) -> None:
+    """Print a SLAM run's host times: per frame, per keyframe, per stage."""
+    frame_ms, kf_ms = np.asarray(run["frame_ms"]), np.asarray(run["kf_ms"])
+    log(f"track_monocular ms/frame over {len(frame_ms)} frames: p50 "
+        f"{np.percentile(frame_ms, 50):.1f}, p90 {np.percentile(frame_ms, 90):.1f}, "
+        f"max {frame_ms.max():.1f}; local mapping ms/keyframe over {len(kf_ms)}: "
+        f"p50 {np.percentile(kf_ms, 50):.1f}, max {kf_ms.max():.1f} "
+        f"(host wall clock, synchronized; {smi})")
+    for name, st in sorted(run["stages"].items()):
+        log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
+            f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock; "
+            f"each stage ends in a host read of its result)")
+
+
+def check_policies(launches: dict, frames: int, path: str) -> None:
+    """K2 once a frame and K1 under every matcher policy on a SLAM path."""
+    if launches.get(patch.KERNEL, 0) != frames:
+        raise AssertionError(f"K2 launched {launches.get(patch.KERNEL, 0)} times over "
+                             f"{frames} frames on the {path} path")
+    for pol in POLICIES:
+        if launches.get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
+            raise AssertionError(f"K1 was not launched by the {pol} policy on the "
+                                 f"{path} path")
 
 
 def main() -> int:
@@ -597,16 +667,7 @@ def main() -> int:
             f"{REFERENCE_ATE * ATE_MARGIN:.5f} m = JAX package's {REFERENCE_ATE} m x "
             f"{ATE_MARGIN})")
         log(f"launches on the mono SLAM path: {json.dumps(slam_launches, sort_keys=True)}")
-        frame_ms, kf_ms = np.asarray(run["frame_ms"]), np.asarray(run["kf_ms"])
-        log(f"track_monocular ms/frame over {len(frame_ms)} frames: p50 "
-            f"{np.percentile(frame_ms, 50):.1f}, p90 {np.percentile(frame_ms, 90):.1f}, "
-            f"max {frame_ms.max():.1f}; local mapping ms/keyframe over {len(kf_ms)}: "
-            f"p50 {np.percentile(kf_ms, 50):.1f}, max {kf_ms.max():.1f} "
-            f"(host wall clock, synchronized; {smi})")
-        for name, st in sorted(run["stages"].items()):
-            log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
-                f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock; "
-                f"each stage ends in a host read of its result)")
+        report_times(run, smi)
         if not 0 <= init <= MAX_INIT_FRAME:
             raise AssertionError(f"the map initialized at frame {init}, not by "
                                  f"{MAX_INIT_FRAME}")
@@ -614,12 +675,7 @@ def main() -> int:
             raise AssertionError(f"tracked {share:.3f} of the frames after init")
         if not ate <= REFERENCE_ATE * ATE_MARGIN:
             raise AssertionError(f"ATE {ate} m over {REFERENCE_ATE * ATE_MARGIN} m")
-        if slam_launches.get(patch.KERNEL, 0) != SLAM_FRAMES:
-            raise AssertionError(f"K2 launched {slam_launches.get(patch.KERNEL, 0)} "
-                                 f"times over {SLAM_FRAMES} frames")
-        for pol in POLICIES:
-            if slam_launches.get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
-                raise AssertionError(f"K1 was not launched by the {pol} policy")
+        check_policies(slam_launches, SLAM_FRAMES, "mono SLAM")
 
         plain = mono_slam(imgs, stamps, camera, plain=True)
         if any(plain["launches"].values()):
@@ -636,6 +692,73 @@ def main() -> int:
                 or len(plain["poses"]) != len(run["poses"]) or d_centre > AGREE_CENTRE_TOL):
             raise AssertionError("kernel and plain SLAM runs disagree")
 
+    with phase("mono-inertial SLAM at full width"):
+        t0 = time.perf_counter()
+        seq = vi_sequence(VI_FRAMES, W, H, CAMERA)
+        batches = imu_batches(seq.frame_ts, seq.imu_ts, seq.gyro, seq.acc)
+        log(f"rendered {VI_FRAMES} frames at {W}x{H} with {len(seq.imu_ts)} IMU samples "
+            f"in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        vi = mono_slam(seq.images, seq.frame_ts, camera, imu=batches)
+        vi_seconds = time.perf_counter() - t0
+        vi_launches = vi["launches"]
+        m = vi["map"]
+        ks = m.keyframe_ids()
+        met = vi_metrics(vi["poses"], m.kf_R[ks], m.kf_t[ks], m.kf_ts[ks], seq.frame_ts,
+                         seq.R_cw, seq.t_cw)
+        vinit = vi["init"]
+        after = vi["tracked"][vinit:] if vinit >= 0 else []
+        vshare = sum(after) / max(len(after), 1)
+        ate_bound = VI_REFERENCE["ate_metric"] * VI_ATE_MARGIN
+        scale_bound = max(VI_SCALE_FLOOR, 2 * abs(VI_REFERENCE["kf_scale"] - 1.0))
+        log(f"initialized at frame {vinit}; IMU initialized {vi['imu_initialized']} "
+            f"(frame, keyframe uid) {vi['events'].get('imu_init')}; VIBA1 at frame "
+            f"{vi['events'].get('viba1')}, VIBA2 at frame {vi['events'].get('viba2')}; "
+            f"iba_stage {vi['iba_stage']} (JAX package: {VI_REFERENCE['iba_stage']}); "
+            f"tracked {sum(after)}/{len(after)} from init ({vshare:.3f}); "
+            f"{vi['keyframes']} keyframes, {vi['points']} points; events {vi['log']}")
+        log(f"metric ATE {met['ate_metric']:.5f} m (bound {ate_bound:.5f} m = JAX "
+            f"package's {VI_REFERENCE['ate_metric']} m x {VI_ATE_MARGIN}), Sim3-aligned "
+            f"{met['ate_sim3']:.5f} m, keyframe metric ATE {met['kf_ate_metric']:.5f} m; "
+            f"keyframe scale {met['kf_scale']:.5f} (bound |s-1| <= {scale_bound:.3f}); "
+            f"gravity tilt {met['gravity_tilt_deg']:.3f} deg (JAX package "
+            f"{VI_REFERENCE['gravity_tilt_deg']} deg); {vi_seconds:.1f} s for the run")
+        log(f"launches on the mono-inertial SLAM path: "
+            f"{json.dumps(vi_launches, sort_keys=True)}")
+        report_times(vi, smi)
+        if not 0 <= vinit <= MAX_INIT_FRAME:
+            raise AssertionError(f"the VI map initialized at frame {vinit}")
+        if not vi["imu_initialized"]:
+            raise AssertionError("the IMU did not initialize")
+        if vi["iba_stage"] != VI_REFERENCE["iba_stage"]:
+            raise AssertionError(f"iba_stage {vi['iba_stage']}, the JAX package reaches "
+                                 f"{VI_REFERENCE['iba_stage']}")
+        if vshare < TRACKED_SHARE:
+            raise AssertionError(f"tracked {vshare:.3f} of the frames after init")
+        if not met["ate_metric"] <= ate_bound:
+            raise AssertionError(f"metric ATE {met['ate_metric']} m over {ate_bound} m")
+        if not abs(met["kf_scale"] - 1.0) <= scale_bound:
+            raise AssertionError(f"keyframe scale {met['kf_scale']} off by more than "
+                                 f"{scale_bound}")
+        check_policies(vi_launches, VI_FRAMES, "mono-inertial SLAM")
+
+        vplain = mono_slam(seq.images, seq.frame_ts, camera, plain=True, imu=batches)
+        if any(vplain["launches"].values()):
+            raise AssertionError(f"the plain-kernel VI run launched kernels: "
+                                 f"{json.dumps(vplain['launches'], sort_keys=True)}")
+        d_centre = max(float(np.abs(a[2] - b[2]).max())
+                       for a, b in zip(vi["poses"], vplain["poses"]))
+        log(f"kernel vs plain VI SLAM on the card: init frame {vinit} vs {vplain['init']}, "
+            f"IMU init {vi['events'].get('imu_init')} vs {vplain['events'].get('imu_init')}, "
+            f"iba_stage {vi['iba_stage']} vs {vplain['iba_stage']}, keyframes "
+            f"{vi['keyframes']} vs {vplain['keyframes']}, max camera-centre diff "
+            f"{d_centre:.3e} m")
+        if (vplain["init"] != vinit or vplain["events"].get("imu_init") != vi["events"].get("imu_init")
+                or vplain["iba_stage"] != vi["iba_stage"]
+                or vplain["keyframes"] != vi["keyframes"]
+                or len(vplain["poses"]) != len(vi["poses"]) or d_centre > AGREE_CENTRE_TOL):
+            raise AssertionError("kernel and plain VI SLAM runs disagree")
+
     with phase("timings"):
         extract_ms = median_frame_ms(lambda: extract_features(
             img, n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE))
@@ -650,6 +773,7 @@ def main() -> int:
             replaces="orbslam3_tpu/kernels/patch_pallas.py:91",
             launches=slam_launches.get(patch.KERNEL, 0),
             launches_front_end=front_launches.get(patch.KERNEL, 0),
+            launches_vi=vi_launches.get(patch.KERNEL, 0),
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         policies = []
         for pol in POLICIES:
@@ -672,6 +796,9 @@ def main() -> int:
             launches_front_end=front_launches.get(hamming.KERNEL, 0),
             launches_by_policy={pol: slam_launches.get(f"{hamming.KERNEL}[{pol}]", 0)
                                 for pol in POLICIES},
+            launches_vi=vi_launches.get(hamming.KERNEL, 0),
+            launches_by_policy_vi={pol: vi_launches.get(f"{hamming.KERNEL}[{pol}]", 0)
+                                   for pol in POLICIES},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

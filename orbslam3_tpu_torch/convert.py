@@ -13,6 +13,7 @@ import torch
 
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.core.camera import Camera
+from orbslam3_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig, MapState
 from orbslam3_tpu_torch.vision.frame import FrameFeatures
 
@@ -59,10 +60,22 @@ def frame_features(uv, uv_raw, response, angle, octave, desc, valid,
         valid=tensor(valid, torch.bool, device))
 
 
+def imu_calib(src, device=None) -> ImuCalib:
+    """The port's `ImuCalib` from the JAX one (same field names)."""
+    return ImuCalib(**{name: tensor(getattr(src, name), torch.float32, device)
+                       for name in ImuCalib.__dataclass_fields__})
+
+
+def preintegrated(src, device=None) -> Preintegrated:
+    """The port's `Preintegrated` from the JAX one (same fields)."""
+    return Preintegrated(*(tensor(x, torch.float32, device) for x in src))
+
+
 # The SoA arrays a map carries, copied as they are (numpy on the host).
 MAP_ARRAYS = (
     "kf_R", "kf_t", "kf_valid", "kf_ts", "kf_frame_id", "kf_uv", "kf_octave",
     "kf_angle", "kf_desc", "kf_feat_valid", "kf_obs_mp", "kf_prev", "kf_uid",
+    "kf_vel", "kf_bias",
     "mp_pos", "mp_desc", "mp_valid", "mp_normal", "mp_min_dist", "mp_max_dist",
     "mp_visible", "mp_found", "mp_first_kf", "mp_ref_kf", "mp_uid",
 )
@@ -72,8 +85,10 @@ def map_state(src, device=None) -> MapState:
     """The port's `MapState` from a JAX `MapState` (or any object with its
     numpy arrays and counters): keyframe poses, features, observations,
     point positions, descriptors (uint32 words, as both maps store them),
-    normals, scale bands and counters, uids and cull anchors. The
-    covisibility product runs on `device`."""
+    normals, scale bands and counters, uids and cull anchors, and the
+    inertial state (velocities, biases, the preintegration chain on
+    `device`, the IMU-init flags and the last re-gauge). The covisibility
+    product runs on `device`."""
     c = src.cfg
     cfg = MapConfig(max_keyframes=c.max_keyframes, max_points=c.max_points,
                     features_per_frame=c.features_per_frame,
@@ -85,4 +100,9 @@ def map_state(src, device=None) -> MapState:
     m.change_index = int(src.change_index)
     m.culled_anchor = {int(k): (int(a), np.array(R), np.array(t))
                        for k, (a, R, t) in src.culled_anchor.items()}
+    m.kf_pre = {int(k): preintegrated(p, device) for k, p in src.kf_pre.items()}
+    m.imu_initialized, m.bad_imu = bool(src.imu_initialized), bool(src.bad_imu)
+    m.iba_stage, m.gauge_epoch = int(src.iba_stage), int(src.gauge_epoch)
+    m.last_gauge = (None if src.last_gauge is None else
+                    (np.array(src.last_gauge[0]), float(src.last_gauge[1])))
     return m

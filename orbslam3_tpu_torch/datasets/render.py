@@ -256,3 +256,130 @@ def orbit_sequence(n_frames: int = 40, width: int = 752, height: int = 480,
     imgs = np.stack([scene.render(K, R[i], t[i], width, height, seed=i)
                      for i in range(n_frames)])
     return imgs, R, t, np.arange(n_frames) / fps
+
+
+def excited_trajectory(n_frames: int, fps: float, imu_rate: float, center,
+                       radius: float, arc: float, excitation: float = 0.06,
+                       rot_excitation: float = 0.0, seed: int = 0):
+    """An orbit looking at `center` with sinusoidal translational (and
+    optionally rotational) excitation, and IMU samples consistent with it.
+
+    Port of `orbslam3_tpu/datasets/synth_euroc.py:excited_trajectory` (the
+    'center' gaze). Scale and the accelerometer bias are observable only
+    under real acceleration and rotation, so the path shakes at 1.4-2.6 Hz.
+    The dense path is sampled at the IMU rate and differentiated there.
+    Returns (R_cw (F,3,3), t_cw (F,3), frame_idx, imu_t (K+1,), gyro (K,3),
+    acc (K,3)); IMU row k is the midpoint sample of [imu_t[k], imu_t[k+1]],
+    body == camera.
+    """
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(seed + 77)
+    T = n_frames / fps
+    stride = int(round(imu_rate / fps))
+    n_dense = n_frames * stride + 1
+    t = np.arange(n_dense) / imu_rate
+    cx, cy, cz = center
+    th = arc * (t / T) - arc / 2
+    C = np.stack([cx + radius * np.sin(th), cy + 0.4 * np.sin(2 * th),
+                  cz - radius * np.cos(th)], axis=-1)
+    freqs = rng.uniform(1.4, 2.6, 3)
+    phases = rng.uniform(0, 2 * np.pi, 3)
+    for ax in range(3):
+        C[:, ax] += excitation * np.sin(2 * np.pi * freqs[ax] * t + phases[ax])
+    look_v = np.asarray(center, np.float64)[None] - C
+    z = look_v / np.linalg.norm(look_v, axis=1, keepdims=True)
+    up = np.array([0.0, 1.0, 0.0])
+    x = np.cross(np.broadcast_to(up, z.shape), z)
+    x = x / np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.cross(z, x)
+    R_wc = np.stack([x, y, z], axis=-1)
+    if rot_excitation > 0:
+        rfreqs = rng.uniform(0.9, 1.9, 3)
+        rphases = rng.uniform(0, 2 * np.pi, 3)
+        ang = rot_excitation * np.sin(
+            2 * np.pi * rfreqs[None, :] * t[:, None] + rphases[None, :])
+        R_wc = R_wc @ Rotation.from_rotvec(ang).as_matrix()
+    R_cw = np.swapaxes(R_wc, 1, 2)
+    t_cw = -np.einsum("kij,kj->ki", R_cw, C)
+
+    dt = 1.0 / imu_rate
+    g_w = np.array([0.0, 0.0, -9.81])
+    a_w = (C[2:] - 2 * C[1:-1] + C[:-2]) / (dt * dt)  # at t[1..K-1]
+    K = n_dense - 1
+    Rel = np.einsum("kji,kjl->kil", R_wc[:-1], R_wc[1:])
+    gyro = Rotation.from_matrix(Rel).as_rotvec() / dt
+    a_mid = np.empty((K, 3))
+    a_mid[1:-1] = 0.5 * (a_w[:-1] + a_w[1:])
+    a_mid[0] = a_w[0]
+    a_mid[-1] = a_w[-1]
+    acc = np.einsum("kji,kj->ki", R_wc[:-1], a_mid - g_w[None])
+    frame_idx = np.arange(n_frames) * stride
+    return (R_cw[frame_idx].astype(np.float64), t_cw[frame_idx].astype(np.float64),
+            frame_idx, t, gyro, acc)
+
+
+@dataclasses.dataclass
+class ViSequence:
+    """A rendered mono-inertial sequence held in memory."""
+    images: np.ndarray    # (F, H, W) uint8, or None
+    R_cw: np.ndarray      # (F,3,3) ground-truth world->camera
+    t_cw: np.ndarray      # (F,3)
+    frame_ts: np.ndarray  # (F,) seconds
+    imu_ts: np.ndarray    # (K,) seconds, each sample stamped at its interval's end
+    gyro: np.ndarray      # (K,3) rad/s, body frame, with noise
+    acc: np.ndarray       # (K,3) m/s^2, body frame, with noise
+    R_wb: np.ndarray      # (F,3,3) ground-truth body rotations (body == camera)
+
+
+def vi_sequence(n_frames: int = 120, width: int = 752, height: int = 480,
+                intrinsics=(458.654, 457.296, 367.215, 248.375), seed: int = 3,
+                fps: float = 20.0, imu_rate: float = 200.0, radius: float = 3.0,
+                arc: float = 1.0, excitation: float = 0.05,
+                rot_excitation: float = 0.06, imu_noise: bool = True,
+                render: bool = True) -> ViSequence:
+    """The mono-inertial sequence of `orbslam3_tpu/datasets/synth_euroc.py:
+    write_synth_euroc`, in memory: `excited_trajectory` around the centre
+    of `BoxScene.default(seed)` raised 3 m, frames rendered with seed
+    `seed * 1000 + i`, IMU noise of 2e-4 rad/s and 2e-3 m/s^2 drawn from
+    `seed + 5`, timestamps from 100 s, and one IMU sample 5 ms before the
+    first frame, as the writer lays them out (no png, no csv, no YAML).
+    With ``render=False`` the images are left out (None)."""
+    fx, fy, cx, cy = intrinsics
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    scene = BoxScene.default(seed=seed)
+    c = (scene.lo + scene.hi) / 2.0
+    center = (float(c[0]), float(c[1]), float(c[2]) + 3.0)
+    R_cw, t_cw, _, imu_t, gyro, acc = excited_trajectory(
+        n_frames, fps, imu_rate, center, radius, arc, excitation=excitation,
+        rot_excitation=rot_excitation, seed=seed)
+    t0 = 100.0
+    imgs = None if not render else np.stack(
+        [scene.render(K, R_cw[i], t_cw[i], width, height, seed=seed * 1000 + i)
+         for i in range(n_frames)])
+    rng = np.random.default_rng(seed + 5)
+    if imu_noise:
+        gyro = gyro + rng.normal(0, 2e-4, gyro.shape)
+        acc = acc + rng.normal(0, 2e-3, acc.shape)
+    imu_ts = np.concatenate([[t0 - 0.005], t0 + imu_t[1:]])
+    gyro = np.concatenate([gyro[:1], gyro])
+    acc = np.concatenate([acc[:1], acc])
+    return ViSequence(images=imgs, R_cw=R_cw, t_cw=t_cw,
+                      frame_ts=t0 + np.arange(n_frames) / fps, imu_ts=imu_ts,
+                      gyro=gyro, acc=acc, R_wb=np.swapaxes(R_cw, 1, 2))
+
+
+def imu_batches(frame_ts, imu_ts, gyro, acc):
+    """Per-frame IMU batches in the tracker's queue format: for frame i the
+    (ts, gyro(3,), acc(3,)) samples in (frame_ts[i-1], frame_ts[i]] (all
+    samples up to the first frame for frame 0). Port of
+    `orbslam3_tpu/datasets/euroc.py:imu_batches` on arrays."""
+    out, j, prev = [], 0, -np.inf
+    for t1 in frame_ts:
+        batch = []
+        while j < len(imu_ts) and imu_ts[j] <= t1:
+            if imu_ts[j] > prev:
+                batch.append((float(imu_ts[j]), gyro[j], acc[j]))
+            j += 1
+        prev = t1
+        out.append(batch)
+    return out

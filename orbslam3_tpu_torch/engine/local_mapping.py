@@ -1,16 +1,18 @@
 """Local mapping back end: map-point creation, fusion, local BA, culling.
 
 Port of `orbslam3_tpu/engine/local_mapping.py` (ORB-SLAM3's `LocalMapping`),
-the visual path: `ProcessNewKeyFrame`, `MapPointCulling`,
-`CreateNewMapPoints` (epipolar triangulation with covisible neighbours),
-`SearchInNeighbors` (fuse), the local BA over a covisibility window, and
-`KeyFrameCulling`. It runs synchronously when a keyframe is inserted.
+the visual and mono-inertial paths: `ProcessNewKeyFrame`,
+`MapPointCulling`, `CreateNewMapPoints` (epipolar triangulation with
+covisible neighbours), `SearchInNeighbors` (fuse), the local BA (over a
+covisibility window, or over the last keyframes of the temporal chain with
+their inertial edges once the IMU is initialized), the IMU initialization
+ladder, and `KeyFrameCulling` with the inertial gates. It runs
+synchronously when a keyframe is inserted.
 
 The map stays on the host (numpy); each stage builds the padded device
 tensors it needs on `device` (the card unless ``device="cpu"``). Keyframe
 and map-point descriptors go to kernel K1 as the packed words the map
-stores. The inertial branch (IMU initialization, visual-inertial BA) and
-stereo residuals belong to later slices and raise.
+stores. Stereo residuals belong to ROADMAP slice C and raise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.convert import words_to_int32
 from orbslam3_tpu_torch.core import robust
+from orbslam3_tpu_torch.imu import init as imu_init
+from orbslam3_tpu_torch.imu import preintegration as preint
 from orbslam3_tpu_torch.opt.ba import BAProblem, bundle_adjust
 from orbslam3_tpu_torch.slam_map.map_state import MapState
 from orbslam3_tpu_torch.utils import timing
@@ -41,15 +45,20 @@ class LocalMapperConfig:
     culling_min_found_ratio: float = 0.25
     culling_obs_after: int = 3        # KFs after creation before obs test
     kf_cull_redundancy: float = 0.9   # reference: 90% redundant observations
+    # IMU initialization ladder (reference LocalMapping.cc:185-244)
+    imu_init_min_kfs: int = 8
+    imu_init_min_span_s: float = 2.0  # mono needs ~2 s of excitation
+    viba1_after_s: float = 5.0
+    viba2_after_s: float = 15.0
+    inertial_window_kfs: int = 10     # LocalInertialBA temporal window
+    post_init_viba_iters: int = 24    # the full VI-BA after each rung
+    scale_refine_every_s: float = 10.0  # mono ScaleRefinement cadence
+    scale_refine_until_s: float = 75.0
 
 
 class LocalMapper:
     def __init__(self, camera, slam_map: MapState, cfg: LocalMapperConfig = None,
                  imu_calib=None, bf: float = 0.0, device=None):
-        if imu_calib is not None:
-            raise NotImplementedError(
-                "LocalMapper: the inertial branch (IMU initialization, "
-                "visual-inertial BA) is ROADMAP slice D, not yet ported")
         if bf > 0:
             raise NotImplementedError(
                 "LocalMapper: stereo residuals in BA are ROADMAP slice C, "
@@ -58,6 +67,9 @@ class LocalMapper:
         self.camera = camera.to(self.device)
         self.map = slam_map
         self.cfg = cfg or LocalMapperConfig()
+        self.imu_calib = None if imu_calib is None else imu_calib.to(self.device)
+        self._t_imu_init: float | None = None  # ts of the first IMU init
+        self._last_scale_refine: float = -np.inf
         # recent map points to watch for culling: (mp_id, created_kf_count)
         self._recent_mps: list[tuple[int, int]] = []
         self._kf_counter = 0
@@ -86,14 +98,82 @@ class LocalMapper:
             # normals, scale bands and distinctive descriptors of every
             # point this KF observes (ProcessNewKeyFrame)
             self.map.update_point_stats(self.map.kf_obs_mp[k])
+        # local BA: the inertial window once the IMU is initialized, else the
+        # visual covisibility window
         with timing.stage("lm.local_ba"):
-            window = [k] + list(self.map.covisibility(k, min_shared=15)
-                                [: self.cfg.window_kfs - 1])
-            self._run_ba(window, self._fixed_border(window), self.cfg.ba_iters,
-                         abort=abort)
+            if self.map.imu_initialized and self.imu_calib is not None:
+                # until VIBA2 the init-stage bias priors stay on
+                pg, pa = (1.0, 1e5) if self.map.iba_stage < 2 else (0.0, 0.0)
+                with timing.stage("lm.vi_window_ba"):
+                    imu_init.full_inertial_ba(
+                        self.map, self.imu_calib, self.camera, n_iters=self.cfg.ba_iters,
+                        points_cap=self.cfg.ba_points_cap, obs_cap=self.cfg.ba_obs_cap,
+                        window=self.cfg.inertial_window_kfs, prior_gyro=pg,
+                        prior_acc=pa, device=self.device)
+            else:
+                window = [k] + list(self.map.covisibility(k, min_shared=15)
+                                    [: self.cfg.window_kfs - 1])
+                self._run_ba(window, self._fixed_border(window), self.cfg.ba_iters,
+                             abort=abort)
         with self.map.lock:
+            with timing.stage("lm.imu_init"):
+                self._imu_init_ladder(k)
             with timing.stage("lm.cull_kfs"):
                 self._cull_keyframes(k)
+
+    # ------------------------------------------------------------- imu ladder
+    def _full_viba(self, prior_gyro: float = 0.0, prior_acc: float = 0.0):
+        """The full VI-BA after a rung (FullInertialBA): no keyframe fixed,
+        so the residual gravity tilt goes into the gauge."""
+        with timing.stage("lm.vi_full_ba"):
+            imu_init.full_inertial_ba(self.map, self.imu_calib, self.camera,
+                                      n_iters=self.cfg.post_init_viba_iters,
+                                      fix_first=False, prior_gyro=prior_gyro,
+                                      prior_acc=prior_acc, device=self.device)
+
+    def _imu_init_ladder(self, k: int):
+        """The staged IMU initialization: first init, then VIBA1 and VIBA2
+        after `viba1_after_s` and `viba2_after_s`, then monocular scale
+        refinement every `scale_refine_every_s` up to
+        `scale_refine_until_s`. Before the first init, a platform that has
+        barely moved over twice the init span is flagged `bad_imu`."""
+        if self.imu_calib is None:
+            return
+        m, cfg = self.map, self.cfg
+        kfs, _ = imu_init.chain_with_preint(m)
+        if len(kfs) < cfg.imu_init_min_kfs:
+            return
+        span = float(m.kf_ts[kfs[-1]] - m.kf_ts[kfs[0]])
+        now = float(m.kf_ts[k])
+        rung = dict(calib=self.imu_calib, device=self.device)
+        if not m.imu_initialized:
+            if span >= 2.0 * cfg.imu_init_min_span_s:
+                centers = np.stack([-m.kf_R[i].T @ m.kf_t[i] for i in kfs])
+                dist = float(np.linalg.norm(np.diff(centers[-4:], axis=0), axis=1).sum())
+                if dist < 0.02:
+                    m.bad_imu = True
+                    return
+            if span < cfg.imu_init_min_span_s:
+                return
+            if imu_init.initialize_imu(m, prior_gyro=1e2, prior_acc=1e10, **rung) is not None:
+                self._t_imu_init = now
+                self._full_viba(prior_gyro=1e2, prior_acc=1e10)
+            return
+        elapsed = now - (self._t_imu_init if self._t_imu_init is not None else now)
+        if m.iba_stage == 0 and elapsed > cfg.viba1_after_s:
+            if imu_init.initialize_imu(m, prior_gyro=1.0, prior_acc=1e5, **rung) is not None:
+                m.iba_stage = 1
+                self._full_viba(prior_gyro=1.0, prior_acc=1e5)
+        elif m.iba_stage == 1 and elapsed > cfg.viba2_after_s:
+            if imu_init.initialize_imu(m, prior_gyro=0.0, prior_acc=0.0, **rung) is not None:
+                m.iba_stage = 2
+                self._full_viba()
+                self._last_scale_refine = now
+        elif (m.iba_stage == 2 and elapsed <= cfg.scale_refine_until_s
+              and now - self._last_scale_refine >= cfg.scale_refine_every_s):
+            # scale and gravity only; the biases pinned by large priors
+            self._last_scale_refine = now
+            imu_init.initialize_imu(m, prior_gyro=1e6, prior_acc=1e10, fix_vel=True, **rung)
 
     # --------------------------------------------------------------- culling
     def _cull_map_points(self):
@@ -156,7 +236,24 @@ class LocalMapper:
             total_finer = oct_cum[mps, octs] - (own_oct <= octs)
             n_redundant = int((total_finer >= 3).sum())
             if n_redundant / len(slots) > self.cfg.kf_cull_redundancy:
-                for nk in np.nonzero(m.kf_valid & (m.kf_prev == kf))[0]:
+                nxt = np.nonzero(m.kf_valid & (m.kf_prev == kf))[0]
+                if self.imu_calib is not None:
+                    # inertial gates: no culling before VIBA2, and no gap
+                    # of 3 s or more in the temporal chain
+                    if m.iba_stage < 2:
+                        continue
+                    prev = int(m.kf_prev[kf])
+                    if prev >= 0 and any(float(m.kf_ts[int(nk)] - m.kf_ts[prev]) >= 3.0
+                                         for nk in nxt):
+                        continue
+                    # the successors' edges now start at prev: merge this
+                    # keyframe's preintegration into theirs
+                    pre_kf = m.kf_pre.get(kf)
+                    for nk in nxt:
+                        pre_nk = m.kf_pre.get(int(nk))
+                        if pre_kf is not None and pre_nk is not None:
+                            m.kf_pre[int(nk)] = preint.merge(pre_kf, pre_nk)
+                for nk in nxt:
                     m.kf_prev[nk] = m.kf_prev[kf]
                 m.remove_keyframe(kf)
                 # keep the redundancy statistics exact for later candidates

@@ -1,16 +1,17 @@
 """System facade: the engine's entry points.
 
 Port of `orbslam3_tpu/engine/system.py` (ORB-SLAM3's `System`), the
-monocular path: it owns the Atlas, one tracking lane per client and the
-shared local mapper, routes frames (`track_monocular`, `track_features`),
-stores or resets maps on tracking loss, and exports trajectories
+monocular and mono-inertial paths: it owns the Atlas, one tracking lane per
+client and the shared local mapper, routes frames and IMU samples
+(`track_monocular`, `track_features`), stores or resets maps on tracking
+loss, a bad IMU or a timestamp jump, and exports trajectories
 (`save_trajectory_tum` / `_euroc` / `_kitti`). Everything runs on `device`
 (the card unless ``device="cpu"``).
 
 Not ported yet, and raising where asked for: stereo, RGB-D and their
-trackers (ROADMAP slice C), IMU sensors (slice D), the vocabulary with loop
-closing and relocalization (slice E), atlas load and save (slice F), the
-edge server's wire features (slice H), and `async_mapping=True`.
+trackers, with or without an IMU (ROADMAP slice C), the vocabulary with
+loop closing and relocalization (slice E), atlas load and save (slice F),
+the edge server's wire features (slice H), and `async_mapping=True`.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ class SystemConfig:
     map: MapConfig = field(default_factory=MapConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     mapper: LocalMapperConfig = field(default_factory=LocalMapperConfig)
+    imu_calib: object = None  # ImuCalib for IMU_* sensors
     async_mapping: bool = False
     # LOST with a map this mature stores it and spawns a fresh one (the
     # reference's > 10 KFs); smaller maps are reset instead
@@ -90,12 +92,13 @@ class Slam:
                               "slice E")
         if load_atlas_from:
             raise _not_ported("loading an atlas", "slice F")
-        if self.cfg.sensor != Sensor.MONOCULAR:
-            raise _not_ported(f"sensor {self.cfg.sensor.name}",
-                              "slice D" if "IMU" in self.cfg.sensor.name else "slice C")
+        if self.cfg.sensor not in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
+            raise _not_ported(f"sensor {self.cfg.sensor.name}", "slice C")
+        if self.cfg.sensor == Sensor.IMU_MONOCULAR and self.cfg.imu_calib is None:
+            raise ValueError("Slam: Sensor.IMU_MONOCULAR needs SystemConfig.imu_calib")
         if self.cfg.async_mapping:
-            raise NotImplementedError("Slam: async_mapping=True (the reference's "
-                                      "engine/async_engine.py) is not yet ported")
+            raise _not_ported("async_mapping=True (the reference's "
+                              "engine/async_engine.py)", "slice B")
         self.device = device_policy.resolve(device)
         self.camera = camera.to(self.device)
         self.atlas = Atlas(self.cfg.map, device=self.device)
@@ -109,12 +112,16 @@ class Slam:
 
     def _make_backend(self) -> LocalMapper:
         return LocalMapper(self.camera, self.atlas.active, cfg=self.cfg.mapper,
-                           device=self.device)
+                           imu_calib=self._imu_calib(), device=self.device)
 
     def _make_tracker(self, client_id: int) -> Tracker:
         return Tracker(self.camera, self.atlas.active, self.cfg.tracker,
                        client_id=client_id, local_mapper=self._backend,
-                       device=self.device)
+                       imu_calib=self._imu_calib(), device=self.device)
+
+    def _imu_calib(self):
+        """The IMU calibration of an inertial sensor, else None."""
+        return self.cfg.imu_calib if self.cfg.sensor == Sensor.IMU_MONOCULAR else None
 
     # ------------------------------------------------------------- clients
     def add_client(self, client_id: int) -> Tracker:
@@ -135,11 +142,12 @@ class Slam:
     # -------------------------------------------------------------- tracking
     def track_monocular(self, img, ts: float, imu=None, client_id: int = 0):
         """Reference `System::TrackMonocular`: a (H, W) grayscale image in
-        [0, 255] (numpy or tensor) -> the world->camera pose (R, t), or None
-        while uninitialized or lost."""
-        if imu is not None:
-            raise _not_ported("the IMU", "slice D")
+        [0, 255] (numpy or tensor) and the IMU samples since the last frame
+        -> the world->camera pose (R, t), or None while uninitialized or
+        lost."""
         tracker = self.trackers[client_id]
+        if imu is not None:
+            tracker.queue_imu(imu)
         out = tracker.process_image(img, ts)
         self._after_track(tracker)
         return out
@@ -154,9 +162,9 @@ class Slam:
 
     def track_features(self, feats, ts: float, client_id: int = 0, imu=None):
         """Track from pre-extracted `FrameFeatures`."""
-        if imu is not None:
-            raise _not_ported("the IMU", "slice D")
         tracker = self.trackers[client_id]
+        if imu is not None:
+            tracker.queue_imu(imu)
         out = tracker.process_features(feats, ts)
         self._after_track(tracker)
         return out
@@ -166,13 +174,21 @@ class Slam:
 
     def _after_track(self, tracker: Tracker):
         """Failure ladder: on LOST, store a mature map and respawn, or reset
-        a young one; also services the timestamp-jump request."""
+        a young one; also services the bad-IMU flag (reset the map) and the
+        timestamp-jump requests (reset a young inertial map, else respawn)."""
+        if tracker.map.bad_imu:
+            self._log('bad_imu_reset', map=tracker.map.map_id)
+            self.reset_active_map()
+            return
         req = tracker.reset_request
         if req is not None:
             tracker.reset_request = None
             self._log('timestamp_jump', action=req)
-            self.atlas.create_new_map()
-            self._rebind_all_trackers()
+            if req == 'reset_map':
+                self.reset_active_map()
+            else:
+                self.atlas.create_new_map()
+                self._rebind_all_trackers()
             return
         if tracker.state != TrackingState.LOST:
             return
@@ -325,7 +341,7 @@ class Slam:
         m = t.map
         return {'client': client_id, 'state': t.state.name, 'map_id': m.map_id,
                 'n_kfs': m.n_keyframes, 'n_mps': m.n_points,
-                'imu_initialized': False, 'n_maps': len(self.atlas.maps)}
+                'imu_initialized': m.imu_initialized, 'n_maps': len(self.atlas.maps)}
 
     def _log(self, kind: str, **kw):
         self.events.append({'event': kind, **kw})

@@ -53,3 +53,35 @@ def associate(ts_a: np.ndarray, ts_b: np.ndarray, max_dt: float = 0.02):
     ib = np.where(np.abs(ts_a - left) < np.abs(ts_a - right), ib - 1, ib)
     ok = np.abs(ts_a - ts_b[ib]) < max_dt
     return np.nonzero(ok)[0], ib[ok]
+
+
+def vi_metrics(poses, kf_R, kf_t, kf_ts, frame_ts, R_cw_gt, t_cw_gt) -> dict:
+    """The checks of a mono-inertial run against ground truth, as
+    `tests/test_vi_golden.py` makes them (body == camera):
+
+    - `ate_metric` / `ate_sim3`: ATE of the (ts, R_wc, t_wc) poses after a
+      rigid / a similarity alignment (the IMU fixes the scale, so the rigid
+      one is the metric error);
+    - `kf_ate_metric` and `kf_scale`: the keyframe centres' rigid ATE and
+      the scale of their similarity alignment;
+    - `gravity_tilt_deg`: median over keyframes of the angle between the
+      map's -z and true gravity, through each keyframe's true rotation."""
+    frame_ts = np.asarray(frame_ts, np.float64)
+    centres_gt = -np.einsum("nji,nj->ni", R_cw_gt, t_cw_gt)
+
+    def at(ts):
+        return np.asarray([int(np.argmin(np.abs(frame_ts - x))) for x in ts], np.int64)
+
+    est = np.asarray([p[2] for p in poses], np.float64)
+    gt = centres_gt[at([p[0] for p in poses])]
+    kf_R = np.asarray(kf_R, np.float64)
+    kf_c = -np.einsum("nji,nj->ni", kf_R, np.asarray(kf_t, np.float64))
+    gi = at(kf_ts)
+    s_kf, _, _ = umeyama_alignment(kf_c, centres_gt[gi], with_scale=True)
+    # map world <- true world is R_wc(map) R_cw(true); true gravity is -z
+    g_map = np.einsum("nji,njk,k->ni", kf_R, R_cw_gt[gi], np.array([0.0, 0.0, -1.0]))
+    tilt = np.degrees(np.arccos(np.clip(-g_map[:, 2], -1.0, 1.0)))
+    return dict(ate_metric=ate_rmse(est, gt, with_scale=False),
+                ate_sim3=ate_rmse(est, gt, with_scale=True),
+                kf_ate_metric=ate_rmse(kf_c, centres_gt[gi], with_scale=False),
+                kf_scale=float(s_kf), gravity_tilt_deg=float(np.median(tilt)))

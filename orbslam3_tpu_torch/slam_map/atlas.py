@@ -82,9 +82,10 @@ class Atlas:
         x_dst = s * R @ x_src + t (the merge Sim3 from place recognition).
 
         Poses: T_cw_dst = T_cw_src o S^-1, i.e. R' = R_cw R^T,
-        t' = -1/s * R' (R... ) — derived below; velocities scale by 1/s? The
-        reference divides translation by scale when converting corrected Sim3
-        back to SE3 (LoopClosing.cc MergeLocal corrected poses).
+        t' = s t - R' t_m (derived below); keyframe velocities are world
+        vectors and map as s R v (the reference divides translation by scale
+        when converting corrected Sim3 back to SE3, LoopClosing.cc
+        MergeLocal corrected poses).
 
         Returns {src_kf_slot: dst_kf_slot} so callers (trackers, loop closer)
         can re-point their keyframe references.
@@ -128,7 +129,9 @@ class Atlas:
             nk = dst.add_keyframe(
                 Rp, tp, src.kf_ts[k], src.kf_frame_id[k], src.kf_uv[k],
                 src.kf_octave[k], src.kf_angle[k], src.kf_desc[k],
-                src.kf_feat_valid[k], remapped, prev_kf=prev)
+                src.kf_feat_valid[k], remapped, prev_kf=prev,
+                vel=s * (Rm @ src.kf_vel[k]), bias=src.kf_bias[k],
+                preint=src.kf_pre.get(int(k)))
             if nk < 0:
                 continue  # at the hard ceiling (loud drop event already fired)
             kf_map[int(k)] = nk

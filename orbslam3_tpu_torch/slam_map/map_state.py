@@ -16,9 +16,10 @@ As in the reference, the arrays are plain numpy on the host, for cheap
 random mutation by tracking and mapping; the callers build padded device
 views per call (matching, BA), and the covisibility product runs on the
 map's device. Lifecycle (SetBadFlag-style erasure) is tombstoning via the
-valid masks. The stereo and inertial bookkeeping of the reference (right
-image coordinates, keyframe velocities and biases, the preintegration
-chain, re-gauge, IMU-init flags) comes with ROADMAP slices C and D.
+valid masks. The inertial state rides along: per-keyframe velocity, bias
+and the preintegration to the previous keyframe, the IMU-init flags, and
+the re-gauge of the whole map at IMU initialization. The stereo
+bookkeeping (right image coordinates) comes with ROADMAP slice C.
 """
 
 from __future__ import annotations
@@ -87,6 +88,13 @@ class MapState:
         self.kf_feat_valid = np.zeros((M, N), bool)
         self.kf_obs_mp = np.full((M, N), -1, np.int32)
         self.kf_prev = np.full(M, -1, np.int32)  # temporal chain (mPrevKF)
+        # IMU state per keyframe (used once inertial is initialized)
+        self.kf_vel = np.zeros((M, 3), np.float32)
+        self.kf_bias = np.zeros((M, 6), np.float32)
+        # preintegration from kf_prev to each keyframe (reference
+        # KeyFrame::mpImuPreintegrated): slot -> Preintegrated, dropped with
+        # the slot
+        self.kf_pre: dict[int, object] = {}
         # map points
         self.mp_pos = np.zeros((P, 3), np.float32)
         self.mp_desc = np.zeros((P, 8), np.uint32)
@@ -123,6 +131,13 @@ class MapState:
         # held by the async mapping worker around map-mutating stages and by
         # the tracker around multi-array consistent reads/inserts
         self.lock = threading.RLock()
+        self.imu_initialized = False
+        self.iba_stage = 0  # 0: none, 1: VIBA1 done, 2: VIBA2 done
+        self.gauge_epoch = 0       # bumped by apply_scaled_rotation
+        self.last_gauge = None     # (Rgw, s) of the latest re-gauge
+        # bad-IMU detector (reference mbBadImu): too little motion for the
+        # inertial initialization; the system resets the map when it sees it
+        self.bad_imu = False
 
     # -- capacity tiers ------------------------------------------------------
     def _event(self, kind: str, **info):
@@ -155,6 +170,7 @@ class MapState:
                  ('kf_ts', 0.0), ('kf_frame_id', -1), ('kf_uv', 0.0),
                  ('kf_octave', 0), ('kf_angle', 0.0), ('kf_desc', 0),
                  ('kf_feat_valid', False), ('kf_obs_mp', -1),
+                 ('kf_vel', 0.0), ('kf_bias', 0.0),
                  ('kf_prev', -1), ('kf_uid', -1)], kf_old, kf_new)
             self._event('grow_keyframes', old=kf_old, new=kf_new)
         if mp_new > mp_old:
@@ -195,7 +211,8 @@ class MapState:
         return c[1]
 
     def add_keyframe(self, R, t, ts, frame_id, uv, octave, angle, desc,
-                     feat_valid, obs_mp, prev_kf: int = -1) -> int:
+                     feat_valid, obs_mp, prev_kf: int = -1, vel=None, bias=None,
+                     preint=None) -> int:
         free = np.nonzero(~self.kf_valid)[0]
         if len(free) == 0:
             # tier bump (x2) instead of a silent skip; only the hard
@@ -218,6 +235,14 @@ class MapState:
         self.kf_feat_valid[k] = feat_valid
         self.kf_obs_mp[k] = obs_mp
         self.kf_prev[k] = prev_kf
+        if vel is not None:
+            self.kf_vel[k] = vel
+        if bias is not None:
+            self.kf_bias[k] = bias
+        if preint is not None:
+            self.kf_pre[k] = preint
+        else:
+            self.kf_pre.pop(k, None)
         self.kf_uid[k] = self._next_uid
         self._next_uid += 1
         self.kf_valid[k] = True
@@ -239,7 +264,31 @@ class MapState:
                 int(self.kf_uid[p]), R_ca.copy(), t_ca.copy())
         self.kf_valid[k] = False
         self.kf_obs_mp[k] = -1
+        self.kf_pre.pop(k, None)
         self.change_index += 1
+
+    def apply_scaled_rotation(self, Rgw: np.ndarray, s: float,
+                              scale_velocities: bool = True):
+        """Re-gauge the whole map: new world w' = s Rgw w (reference
+        `Map::ApplyScaledRotation`, after IMU initialization: gravity along
+        -z, metric scale). Camera poses become Rcw' = Rcw Rgw^T, tcw' = s tcw,
+        so camera-frame coordinates scale uniformly; viewing normals rotate
+        and the scale bands scale. `gauge_epoch` tells trackers to re-express
+        their motion state."""
+        Rgw = np.asarray(Rgw, np.float32)
+        ks = self.keyframe_ids()
+        self.kf_R[ks] = self.kf_R[ks] @ Rgw.T
+        self.kf_t[ks] = s * self.kf_t[ks]
+        if scale_velocities:
+            self.kf_vel[ks] = s * (self.kf_vel[ks] @ Rgw.T)
+        live = self.mp_valid
+        self.mp_pos[live] = s * (self.mp_pos[live] @ Rgw.T)
+        self.mp_normal[live] = self.mp_normal[live] @ Rgw.T
+        self.mp_min_dist[live] *= s
+        self.mp_max_dist[live] *= s
+        self.change_index += 1
+        self.gauge_epoch += 1
+        self.last_gauge = (Rgw.copy(), float(s))
 
     # -- map points ----------------------------------------------------------
     def add_points(self, pos, desc, first_kf, normals=None,

@@ -4,8 +4,9 @@ Port of the numpy parts of `orbslam3_tpu/utils/synth.py`: a persistent 3-D
 landmark field with per-landmark 256-bit descriptors (`make_world`), an
 orbit trajectory (`orbit_trajectory`), and per-frame `FrameFeatures`
 synthesized from the field with pixel noise, bit flips, dropout and
-distractors (`render_features`). The IMU generators belong to a later
-slice.
+distractors (`render_features`), and the IMU generators: finite-difference
+samples along a pose sequence (`imu_orbit_samples`) and an exact float64
+integration of analytic body rates (`simulate_imu`, `ImuTrajectory`).
 """
 
 from __future__ import annotations
@@ -163,3 +164,129 @@ def render_features(
         valid=torch.from_numpy(valid).to(dev),
     )
     return feats, gt_ids
+
+
+def imu_orbit_samples(R_cw, t_cw, ts, rate=200.0, g=9.81, seed=0,
+                      gyro_noise=0.0, acc_noise=0.0, gyro_bias=None, acc_bias=None):
+    """Finite-difference IMU samples consistent with a camera pose sequence
+    (body == camera frame). Returns a list of per-interval (acc, gyro, dt)
+    float32 arrays."""
+    from orbslam3_tpu_torch.core import lie
+    rng = np.random.default_rng(seed)
+    R_wb = np.swapaxes(R_cw, -1, -2)
+    p_wb = -np.einsum("nij,nj->ni", R_wb, t_cw)
+    out = []
+    g_w = np.array([0.0, 0.0, -g])
+    for i in range(len(ts) - 1):
+        t0, t1 = ts[i], ts[i + 1]
+        n = max(int(round((t1 - t0) * rate)), 2)
+        tau = np.linspace(t0, t1, n + 1)
+        # angular velocity (body): log(R_wb_i^T R_wb_{i+1}) / dt, in f32
+        dR = R_wb[i].T @ R_wb[i + 1]
+        w_b = lie.so3_log(torch.from_numpy(dR.astype(np.float32))).numpy() / (t1 - t0)
+        # acceleration by central differences of position
+        if 0 < i < len(ts) - 2:
+            dt = ts[i + 1] - ts[i]
+            a_w = (p_wb[i + 2] - p_wb[i + 1] - p_wb[i] + p_wb[i - 1]) / (2 * dt * dt)
+        else:
+            a_w = np.zeros(3)
+        acc_b = R_wb[i].T @ (a_w - g_w)
+        acc = np.tile(acc_b, (n, 1))
+        gyr = np.tile(w_b, (n, 1))
+        if gyro_noise > 0:
+            gyr = gyr + rng.normal(scale=gyro_noise, size=gyr.shape)
+        if acc_noise > 0:
+            acc = acc + rng.normal(scale=acc_noise, size=acc.shape)
+        if gyro_bias is not None:
+            gyr = gyr + gyro_bias
+        if acc_bias is not None:
+            acc = acc + acc_bias
+        out.append((acc.astype(np.float32), gyr.astype(np.float32),
+                    np.diff(tau).astype(np.float32)))
+    return out
+
+
+@dataclasses.dataclass
+class ImuTrajectory:
+    """Ground-truth body trajectory and IMU samples from analytic body
+    rates. States are at the sample times (R_wb[k] at t[k]); samples are
+    per interval [t[k], t[k+1]], taken at its midpoint."""
+
+    t: np.ndarray       # (K+1,) sample times
+    R_wb: np.ndarray    # (K+1,3,3) body->world rotations
+    p_wb: np.ndarray    # (K+1,3) body positions (world)
+    v_wb: np.ndarray    # (K+1,3) body velocities (world)
+    gyro: np.ndarray    # (K,3) measured angular rate (body) incl. bias
+    acc: np.ndarray     # (K,3) measured specific force (body) incl. bias
+    dt: np.ndarray      # (K,)
+
+    def gt_deltas(self, i: int, j: int, g=9.81):
+        """Exact preintegration deltas between sample times i < j."""
+        g_w = np.array([0.0, 0.0, -g])
+        dT = self.t[j] - self.t[i]
+        Ri = self.R_wb[i]
+        dR = Ri.T @ self.R_wb[j]
+        dV = Ri.T @ (self.v_wb[j] - self.v_wb[i] - g_w * dT)
+        dP = Ri.T @ (self.p_wb[j] - self.p_wb[i] - self.v_wb[i] * dT
+                     - 0.5 * g_w * dT * dT)
+        return dR, dV, dP, dT
+
+
+def simulate_imu(duration=2.0, rate=200.0, substeps=40, seed=0, g=9.81,
+                 gyro_bias=(0.0, 0.0, 0.0), acc_bias=(0.0, 0.0, 0.0),
+                 gyro_noise=0.0, acc_noise=0.0,
+                 w_scale=0.6, f_scale=1.2) -> ImuTrajectory:
+    """Integrate smooth analytic body rates in float64. The rates are sums
+    of seeded incommensurate sinusoids; f_b is the specific force in the
+    body frame, so the world acceleration is R_wb f_b + g_w."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    aw = rng.uniform(0.5, 2.0, (3, 2))
+    ph = rng.uniform(0, 2 * np.pi, (3, 4))
+
+    def w_fn(t):
+        return w_scale * np.array([
+            np.sin(aw[0, 0] * t + ph[0, 0]) + 0.5 * np.cos(aw[0, 1] * t + ph[0, 1]),
+            np.sin(aw[1, 0] * t + ph[1, 0]) + 0.5 * np.cos(aw[1, 1] * t + ph[1, 1]),
+            np.sin(aw[2, 0] * t + ph[2, 0]),
+        ])
+
+    def f_fn(t):
+        return f_scale * np.array([
+            np.sin(aw[0, 1] * t + ph[0, 2]),
+            np.cos(aw[1, 1] * t + ph[1, 2]),
+            np.sin(aw[2, 1] * t + ph[2, 3]),
+        ]) + np.array([0.0, 0.0, g])  # roughly gravity-supporting
+
+    K = int(round(duration * rate))
+    h = 1.0 / (rate * substeps)
+    g_w = np.array([0.0, 0.0, -g])
+    R, p, v, t_cur = np.eye(3), np.zeros(3), np.zeros(3), 0.0
+    states_t, states_R, states_p, states_v = [0.0], [R.copy()], [p.copy()], [v.copy()]
+    gyro_s, acc_s, dt_s = [], [], []
+    bg = np.asarray(gyro_bias, np.float64)
+    ba = np.asarray(acc_bias, np.float64)
+    for _ in range(K):
+        t_mid_sample = t_cur + 0.5 / rate
+        gyro_s.append(w_fn(t_mid_sample) + bg + rng.normal(scale=gyro_noise, size=3))
+        acc_s.append(f_fn(t_mid_sample) + ba + rng.normal(scale=acc_noise, size=3))
+        dt_s.append(1.0 / rate)
+        for _ in range(substeps):
+            tm = t_cur + 0.5 * h
+            w = w_fn(tm)
+            f = f_fn(tm)
+            R_mid = R @ Rotation.from_rotvec(w * 0.5 * h).as_matrix()
+            a_w = R_mid @ f + g_w
+            p = p + v * h + 0.5 * a_w * h * h
+            v = v + a_w * h
+            R = R @ Rotation.from_rotvec(w * h).as_matrix()
+            t_cur += h
+        states_t.append(t_cur)
+        states_R.append(R.copy())
+        states_p.append(p.copy())
+        states_v.append(v.copy())
+    return ImuTrajectory(
+        t=np.asarray(states_t), R_wb=np.asarray(states_R),
+        p_wb=np.asarray(states_p), v_wb=np.asarray(states_v),
+        gyro=np.asarray(gyro_s), acc=np.asarray(acc_s), dt=np.asarray(dt_s))

@@ -162,3 +162,114 @@ def test_policies_launch_k1_once_per_direction(cuda):
     assert _build.launches[f"{hamming.KERNEL}[init]"] == 2
     assert _build.launches[f"{hamming.KERNEL}[triangulation]"] == 2
     assert _build.launches[hamming.KERNEL] == 4
+
+
+def _vi_problem():
+    """A small visual-inertial BA problem built by the port alone (this
+    file imports no JAX): six keyframes 0.25 s apart on a simulated IMU
+    trajectory (body == camera), landmarks seen by two or three of them
+    with 0.5 px noise, perturbed starting states, the first keyframe
+    fixed."""
+    from orbslam3_tpu_torch.core import lie
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.imu import preintegration as pre
+    from orbslam3_tpu_torch.opt import inertial
+    from orbslam3_tpu_torch.utils.synth import simulate_imu
+
+    rng = np.random.default_rng(11)
+    cam = Camera.pinhole(400.0, 400.0, 320.0, 240.0, width=640, height=480, device="cpu")
+    traj = simulate_imu(duration=2.1, seed=3, acc_bias=(0.03, -0.02, 0.05))
+    idx = [100 + 50 * k for k in range(6)]
+    M = len(idx)
+    pts, kf_idx, lm_idx, uv = [], [], [], []
+    for k in range(M):
+        xc = np.stack([rng.uniform(-2, 2, 40), rng.uniform(-1.5, 1.5, 40),
+                       rng.uniform(3, 8, 40)], -1)
+        for X in xc @ traj.R_wb[idx[k]].T + traj.p_wb[idx[k]]:
+            seen = []
+            for kk in range(k, min(k + 3, M)):
+                xo = (X - traj.p_wb[idx[kk]]) @ traj.R_wb[idx[kk]]
+                q = cam.project(torch.tensor(xo, dtype=torch.float32)).numpy()
+                if xo[2] > 1.0 and 0 <= q[0] < 640 and 0 <= q[1] < 480:
+                    seen.append((kk, q))
+            if len(seen) >= 2:
+                for kk, q in seen:
+                    kf_idx.append(kk)
+                    lm_idx.append(len(pts))
+                    uv.append(q)
+                pts.append(X)
+    O, P = len(uv), len(pts)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
+    dR = lie.so3_exp(f32(rng.normal(0, 0.01, (M, 3))))
+    prob = inertial.VIBAProblem(
+        Rwb=f32(traj.R_wb[idx]) @ dR, twb=f32(traj.p_wb[idx] + rng.normal(0, 0.02, (M, 3))),
+        vel=f32(traj.v_wb[idx] + rng.normal(0, 0.05, (M, 3))), bias=torch.zeros(M, 6),
+        points=f32(np.asarray(pts) + rng.normal(0, 0.03, (P, 3))),
+        kf_idx=torch.tensor(kf_idx), lm_idx=torch.tensor(lm_idx),
+        uv=f32(np.asarray(uv) + rng.normal(0, 0.5, (O, 2))), info=torch.ones(O),
+        valid=torch.ones(O, dtype=torch.bool), fixed_kf=torch.arange(M) == 0,
+        fixed_lm=torch.zeros(P, dtype=torch.bool))
+    calib = pre.ImuCalib.create()
+    pres = [pre.preintegrate(*(f32(x[a:b]) for x in (traj.acc, traj.gyro, traj.dt)),
+                             torch.zeros(6), calib) for a, b in zip(idx[:-1], idx[1:])]
+    edges = inertial.build_edges(pres, [(k, k + 1) for k in range(M - 1)])
+    return prob, edges, cam, calib, traj, idx
+
+
+def _to(x, dev):
+    return type(x)(*(v.to(dev) for v in x))
+
+
+@pytest.mark.cuda
+def test_visual_inertial_ba_on_the_card(cuda):
+    """VI-BA on the card against the CPU (1e-4 of the largest entry; points
+    1e-3 m), and two runs on the card bit for bit (segment sums in a fixed
+    order)."""
+    from orbslam3_tpu_torch.opt import inertial
+    prob, edges, cam, _, _, _ = _vi_problem()
+    eye, zero = torch.eye(3), torch.zeros(3)
+    ref, ref_costs = inertial.visual_inertial_ba(prob, edges, cam, eye, zero, n_iters=8,
+                                                 prior_gyro=1.0, prior_acc=1e5)
+    runs = [inertial.visual_inertial_ba(_to(prob, cuda), _to(edges, cuda), cam.to(cuda),
+                                        eye.to(cuda), zero.to(cuda), n_iters=8,
+                                        prior_gyro=1.0, prior_acc=1e5) for _ in range(2)]
+    got, costs = runs[0]
+    for name in ("Rwb", "twb", "vel", "bias"):
+        r = getattr(ref, name)
+        assert (getattr(got, name).cpu() - r).abs().max() <= 1e-4 * r.abs().max() + 1e-6, name
+    assert (got.points.cpu() - ref.points).abs().max() <= 1e-3
+    assert torch.allclose(costs.cpu(), ref_costs, rtol=1e-3)
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_optimize_pose_inertial_on_the_card(cuda):
+    """VI pose tracking on the card against the CPU: pose and velocity 1e-4,
+    the inlier mask exact; two runs on the card bit for bit."""
+    from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inertial
+    prob, edges, cam, calib, traj, idx = _vi_problem()
+    from orbslam3_tpu_torch.imu import preintegration as P
+    i, j = idx[1], idx[2]
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
+    window = P.preintegrate(*(f32(x[i:j]) for x in (traj.acc, traj.gyro, traj.dt)),
+                            torch.zeros(6), calib)
+    anchor = BodyState(f32(traj.R_wb[i]), f32(traj.p_wb[i]), f32(traj.v_wb[i]), torch.zeros(6))
+    cur = BodyState(f32(traj.R_wb[j]), f32(traj.p_wb[j] + [0.05, -0.03, 0.04]),
+                    f32(traj.v_wb[j] + [0.1, 0.0, -0.1]), torch.zeros(6))
+    sel = prob.kf_idx == 2
+    pts = prob.points[prob.lm_idx[sel]]
+    uv, n = prob.uv[sel], int(sel.sum())
+    args = (pts, uv, torch.ones(n), torch.ones(n, dtype=torch.bool))
+    ref = optimize_pose_inertial(anchor, cur, window, calib, *args, cam)
+    runs = [optimize_pose_inertial(_to(anchor, cuda), _to(cur, cuda), window.to(cuda), calib,
+                                   *(x.to(cuda) for x in args), cam.to(cuda))
+            for _ in range(2)]
+    got = runs[0]
+    for a, b in zip(got[0][:3], ref[0][:3]):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+    assert torch.equal(got[1].cpu(), ref[1]) and got[2] == ref[2]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][3].H, runs[1][3].H)

@@ -17,6 +17,7 @@ from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.datasets import render as trender
 from orbslam3_tpu_torch.engine.system import Sensor, Slam, SystemConfig
 from orbslam3_tpu_torch.engine.tracking import TrackerConfig
+from orbslam3_tpu_torch.imu.init import merge_inertial_ba
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.utils.synth import orbit_trajectory
@@ -120,7 +121,7 @@ def test_unported_parts_raise(what):
     elif what == "stereo":
         cfg.sensor = Sensor.STEREO
     elif what == "imu":
-        cfg.sensor = Sensor.IMU_MONOCULAR
+        cfg.sensor = Sensor.IMU_STEREO  # mono-inertial runs; stereo-inertial is slice C
     elif what == "async":
         cfg.async_mapping = True
     elif what == "tracker_bf":
@@ -132,11 +133,11 @@ def test_unported_parts_raise(what):
         if what == "track_stereo":
             slam.track_stereo(None, None, 0.0)
         elif what == "track_imu":
-            slam.track_monocular(np.zeros((240, 376)), 0.0, imu=[])
+            slam.track_rgbd(np.zeros((240, 376)), np.zeros((240, 376)), 0.0, imu=[])
         elif what == "localization":
             slam.activate_localization_mode()
         elif what == "track_features_imu":
-            slam.track_features(None, 0.0, imu=[])
+            merge_inertial_ba(slam.atlas.active, None, CAM, 0, 1)
 
 
 def test_entry_points_default_to_the_card():
