@@ -25,15 +25,26 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   tracked share, the metric ATE (no scale alignment), the keyframe scale
   and the gravity tilt against the rendered truth and the JAX package's
   run on the same images, the kernels' launches, and a plain-kernel rerun
-  that must launch no kernel and agree.
+  that must launch no kernel and agree;
+- stereo SLAM (`Slam.track_stereo`) over 40 raw pairs of EuRoC's
+  distorted, rotated stereo rig along the mono orbit, rectified on the
+  card; RGB-D SLAM (`Slam.track_rgbd`) over 40 frames with uint16 depth
+  at TUM fr1's operating point (640x480, 1000 features); stereo-inertial
+  SLAM over `vi_sequence`'s 120 frames seen by the raw pair, with its IMU.
+  Each takes its settings from a YAML text parsed by the port's
+  `Settings`, is held to the JAX package's run on the same inputs
+  (init frame, tracked share, metric ATE; the IMU ladder's stage), counts
+  K1's launches under the `stereo` policy (once a frame) and K2's (twice
+  a frame on a pair), and is rerun through the plain versions.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
 timings phase times both kernels by replaying a captured CUDA graph (so
 their device time is not hidden behind host launch overhead) at the inputs
-the SLAM run handed them: K1 at one captured mask of each matcher policy
-(tracker, init, triangulation, fuse), each held exactly against the plain
-version, beside its library call and its byte bound; K1 also under four
+the SLAM runs handed them: K1 at one captured mask of each matcher policy
+(tracker, init, triangulation, fuse; the stereo run's row band) and at one
+full-size fisheye pair's all-valid mask, each held exactly against the
+plain version, beside its library call and its byte bound; K1 also under four
 masks at the tracker's shape and at narrow widths, and the launch floor (a
 one-element op under the same replay). Each phase prints one line with its
 wall seconds. The line before the last is the kernels' JSON record; the
@@ -58,7 +69,10 @@ import torch.nn.functional as F
 from orbslam3_tpu_torch import _build
 from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
-from orbslam3_tpu_torch.datasets.render import imu_batches, orbit_sequence, vi_sequence
+from orbslam3_tpu_torch.config import Settings
+from orbslam3_tpu_torch.datasets.render import (BoxScene, imu_batches, orbit_sequence,
+                                                orbit_stereo_sequence, rgbd_sequence,
+                                                stereo_extrinsics, vi_sequence)
 from orbslam3_tpu_torch.engine import local_mapping
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapperConfig
 from orbslam3_tpu_torch.engine.system import Sensor, Slam, SystemConfig
@@ -70,7 +84,9 @@ from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
+from orbslam3_tpu_torch.utils.synth import orbit_trajectory
 from orbslam3_tpu_torch.vision.frame import extract_features
+from orbslam3_tpu_torch.vision.stereo import fisheye_stereo_match
 
 # The operating point: __graft_entry__.py (EuRoC ORBextractor.nFeatures
 # 1200, 752x480, 8 levels, x1.2) and the tracker's defaults
@@ -135,6 +151,154 @@ VI_REFERENCE = dict(iba_stage=2, ate_metric=0.014848, kf_scale=0.99721,
                     gravity_tilt_deg=0.408)
 VI_ATE_MARGIN = 3.0       # other RANSAC draws and summation orders, as above
 VI_SCALE_FLOOR = 0.05     # |s - 1| bound: max(this, 2x the JAX package's)
+
+# Stereo and RGB-D: the settings are parsed from these YAML texts by the
+# port's `Settings` (the card's machine has no PyYAML). EuRoC's raw pair as
+# ORB-SLAM3's Examples/Stereo/EuRoC.yaml gives it (the dataset's
+# mav0/cam{0,1}/sensor.yaml): rad-tan intrinsics of both cameras and
+# T_c1_c2, a 0.110 m baseline with 0.8 deg of rotation, mostly about x.
+EUROC_CAM0 = ((458.654, 457.296, 367.215, 248.375),
+              (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05))
+EUROC_CAM1 = ((457.587, 456.134, 379.999, 255.238),
+              (-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05))
+EUROC_T_C1_C2 = np.array([
+    [0.999997256477797, -0.002317135723275, -0.000343393120620, 0.110074137800478],
+    [0.002312067192432, 0.999898048507103, -0.014090668452683, -0.000156612054392],
+    [0.000376008102320, 0.014089835846691, 0.999900662638081, 0.000889382785432],
+    [0.0, 0.0, 0.0, 1.0]])
+
+
+def euroc_yaml(imu: bool, scale: float = 1.0, n_features: int = 1200) -> str:
+    """EuRoC's stereo (or, with `imu`, stereo-inertial) settings; `scale`
+    shrinks the images and intrinsics (the CPU tests run at 0.5)."""
+    f0, f1 = ([v * scale for v in cam[0]] for cam in (EUROC_CAM0, EUROC_CAM1))
+    d0, d1 = EUROC_CAM0[1], EUROC_CAM1[1]
+    rows = ",\n         ".join(", ".join(repr(float(v)) for v in r) for r in EUROC_T_C1_C2)
+    text = f"""%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {f0[0]}
+Camera1.fy: {f0[1]}
+Camera1.cx: {f0[2]}
+Camera1.cy: {f0[3]}
+Camera1.k1: {d0[0]}
+Camera1.k2: {d0[1]}
+Camera1.p1: {d0[2]}
+Camera1.p2: {d0[3]}
+Camera2.fx: {f1[0]}
+Camera2.fy: {f1[1]}
+Camera2.cx: {f1[2]}
+Camera2.cy: {f1[3]}
+Camera2.k1: {d1[0]}
+Camera2.k2: {d1[1]}
+Camera2.p1: {d1[2]}
+Camera2.p2: {d1[3]}
+Camera.width: {round(W * scale)}
+Camera.height: {round(H * scale)}
+Camera.fps: 20
+Camera.RGB: 1
+Stereo.ThDepth: 60.0
+Stereo.T_c1_c2: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [{rows}]
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+    if imu:  # EuRoC's IMU noise (Examples/Stereo-Inertial/EuRoC.yaml); body == cam0
+        text += """IMU.T_b_c1: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [1.0, 0.0, 0.0, 0.0,
+         0.0, 1.0, 0.0, 0.0,
+         0.0, 0.0, 1.0, 0.0,
+         0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0000e-3
+IMU.GyroWalk: 1.9393e-05
+IMU.AccWalk: 3.0000e-03
+IMU.Frequency: 200.0
+"""
+    return text
+
+
+EUROC_STEREO_YAML = euroc_yaml(imu=False)
+EUROC_STEREO_INERTIAL_YAML = euroc_yaml(imu=True)
+# TUM fr1 (ORB-SLAM3's Examples/RGB-D/TUM1.yaml) as an ideal pinhole, the
+# way the JAX package's TUM writer renders: 640x480, 1000 features,
+# Camera.bf 40, ThDepth 40, depth as uint16 at DepthMapFactor 5000
+TUM1_INTRINSICS = (517.306408, 516.469215, 318.643040, 255.313989)
+TUM1_SIZE = (480, 640)
+
+
+def tum1_yaml(scale: float = 1.0, n_features: int = 1000) -> str:
+    """TUM fr1's RGB-D settings; `scale` shrinks the images and intrinsics."""
+    fx, fy, cx, cy = (v * scale for v in TUM1_INTRINSICS)
+    return f"""%YAML:1.0
+Camera.type: "PinHole"
+Camera.fx: {fx}
+Camera.fy: {fy}
+Camera.cx: {cx}
+Camera.cy: {cy}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: {round(TUM1_SIZE[1] * scale)}
+Camera.height: {round(TUM1_SIZE[0] * scale)}
+Camera.fps: 30.0
+Camera.bf: {40.0 * scale}
+Camera.RGB: 1
+ThDepth: 40.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+TUM1_RGBD_YAML = tum1_yaml()
+# The three depth phases: stereo over 40 frames of the mono phase's orbit
+# seen by EuRoC's raw pair (rectified on the card), RGB-D over 40 frames of
+# `rgbd_sequence` (the TUM writer's sequence) at TUM fr1's operating point,
+# stereo-inertial over `vi_sequence`'s 120 frames and 200 Hz IMU with the
+# raw pair and the mono-inertial phase's ladder cadence (s held at 1). The
+# JAX package on the same images and samples (CPU,
+# scripts/port_stereo_reference.py --phase stereo|rgbd|stereo_vi):
+# stereo initialized at frame 0, tracked all 40 frames, 4 keyframes, 1853
+# points, metric ATE 0.021085 m; RGB-D at frame 0, all 40, 5 keyframes, 1293
+# points, 0.017006 m; stereo-inertial at frame 0, the IMU at frame 42
+# (keyframe uid 9), VIBA1 / VIBA2 at frames 78 / 105, iba_stage 2, all 120
+# tracked, 20 keyframes, 2573 points, metric ATE 0.024705 m, gravity tilt
+# 2.460 deg (against the truth turned into the rectified camera). The port
+# may take other keyframe decisions on sums in another order, so its ATE is
+# held to 3x.
+STEREO_FRAMES = 40
+RGBD_FRAMES = 40
+STEREO_VI_FRAMES = 120
+MAX_DEPTH_INIT_FRAME = 2
+STEREO_REFERENCE = dict(ate_metric=0.021085)
+RGBD_REFERENCE = dict(ate_metric=0.017006)
+STEREO_VI_REFERENCE = dict(iba_stage=2, ate_metric=0.024705, gravity_tilt_deg=2.460)
+DEPTH_ATE_MARGIN = 3.0
+DEPTH_POLICIES = ("tracker", "triangulation", "fuse")  # no two-view init
+# A fisheye pair for K1's all-valid mask: TUM-VI's KB8 cameras (cam0/cam1
+# of its calibration) at their 512x512 and 1000 features, a 0.101 m
+# baseline, one frame of the mono phase's orbit.
+TUMVI_CAM0 = (190.97847715128717, 190.9733070521226, 254.93170605935475, 256.8974428996504,
+              0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202,
+              0.00020293673591811182)
+TUMVI_CAM1 = (190.44236969414825, 190.4344384721956, 252.59949716835982, 254.91723064636983,
+              0.0034003170790442797, 0.001766278153469831, -0.00266312569781606,
+              0.0003299517423931039)
+FISHEYE_SIZE, FISHEYE_FEATURES = 512, 1000
 
 FRAMES = 10
 KERNEL_ITERS = 200
@@ -446,20 +610,48 @@ def trajectory_ate(poses, R_gt, t_gt, stamps) -> float:
 
 
 def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> dict:
-    """`Slam.track_monocular` over the frames on the card, launch counters
-    set to 0 just before and read just after. The kernel run also keeps
-    the first K1 input of each matcher policy (as packed words and mask)
-    and the first K2 input. With `plain`, the kernels' plain versions run
-    instead. With `imu` (one batch of samples a frame) the sensor is
-    IMU_MONOCULAR, and the frames at which the IMU initialized and each
-    ladder rung ran are recorded."""
+    """`run_slam` of `Slam.track_monocular` with the tracker's defaults at
+    the operating point; with `imu` the sensor is IMU_MONOCULAR at the
+    shortened ladder cadence."""
     cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
                        tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
                                              scale_factor=SCALE))
     if imu is not None:
         cfg.sensor, cfg.imu_calib = Sensor.IMU_MONOCULAR, ImuCalib.create()
         cfg.mapper = LocalMapperConfig(**VI_CADENCE)
+    return run_slam(camera, cfg, [(im,) for im in imgs], stamps, plain=plain, imu=imu)
+
+
+def settings_config(text: str, sensor: str):
+    """(camera, SystemConfig, R1) from a YAML text through the port's
+    `Settings`, on the card; R1 turns the raw left camera into the
+    rectified one (identity without rectification). An inertial sensor
+    runs the shortened ladder cadence of the mono-inertial phase."""
+    st = Settings.from_text(text, sensor)
+    cfg = st.system_config()
+    if st.inertial:
+        cfg.mapper = LocalMapperConfig(**VI_CADENCE)
+    rect = st.rectification()
+    return st.camera(), cfg, np.eye(3) if rect is None else rect.R1
+
+
+def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
+             depth_factor: float = 1.0) -> dict:
+    """The sensor's `Slam.track_*` over the frames on the card (`frames`:
+    per frame (image,), (left, right) or (image, depth)), launch counters
+    set to 0 just before and read just after. The kernel run also keeps
+    the first K1 input of each matcher policy (as packed words and mask)
+    and the first K2 input. With `plain`, the kernels' plain versions run
+    instead. With `imu` (one batch of samples a frame) the frames at which
+    the IMU initialized and each ladder rung ran are recorded."""
     slam = Slam(camera, cfg)  # the card: the default device
+    if cfg.sensor in (Sensor.STEREO, Sensor.IMU_STEREO):
+        track = slam.track_stereo
+    elif cfg.sensor in (Sensor.RGBD, Sensor.IMU_RGBD):
+        def track(img, depth, ts, imu=None):
+            return slam.track_rgbd(img, depth, ts, imu=imu, depth_factor=depth_factor)
+    else:
+        track = slam.track_monocular
     events = {}
     kf_ms = []
     process = local_mapping.LocalMapper.process_keyframe
@@ -485,10 +677,10 @@ def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> di
             timing.reset()
             timing.enable(not plain)
             _build.launches.clear()
-            for i, (im, ts) in enumerate(zip(imgs, stamps)):
+            for i, (args, ts) in enumerate(zip(frames, stamps)):
                 t0 = time.perf_counter()
-                tracked.append(slam.track_monocular(
-                    im, float(ts), imu=None if imu is None else imu[i]) is not None)
+                tracked.append(track(*args, float(ts),
+                                     imu=None if imu is None else imu[i]) is not None)
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
                 m = slam.trackers[0].map
@@ -514,29 +706,156 @@ def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> di
     return out
 
 
-def report_times(run: dict, smi: str) -> None:
+def report_times(run: dict, smi: str, entry: str = "track_monocular") -> None:
     """Print a SLAM run's host times: per frame, per keyframe, per stage."""
     frame_ms, kf_ms = np.asarray(run["frame_ms"]), np.asarray(run["kf_ms"])
-    log(f"track_monocular ms/frame over {len(frame_ms)} frames: p50 "
+    mapping = (f"p50 {np.percentile(kf_ms, 50):.1f}, max {kf_ms.max():.1f}"
+               if len(kf_ms) else "none")
+    log(f"{entry} ms/frame over {len(frame_ms)} frames: p50 "
         f"{np.percentile(frame_ms, 50):.1f}, p90 {np.percentile(frame_ms, 90):.1f}, "
         f"max {frame_ms.max():.1f}; local mapping ms/keyframe over {len(kf_ms)}: "
-        f"p50 {np.percentile(kf_ms, 50):.1f}, max {kf_ms.max():.1f} "
-        f"(host wall clock, synchronized; {smi})")
+        f"{mapping} (host wall clock, synchronized; {smi})")
     for name, st in sorted(run["stages"].items()):
         log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
             f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock; "
             f"each stage ends in a host read of its result)")
 
 
-def check_policies(launches: dict, frames: int, path: str) -> None:
-    """K2 once a frame and K1 under every matcher policy on a SLAM path."""
-    if launches.get(patch.KERNEL, 0) != frames:
+def check_policies(launches: dict, frames: int, path: str, policies=POLICIES,
+                   k2_per_frame: int = 1) -> None:
+    """K2 `k2_per_frame` times a frame and K1 under every matcher policy of
+    a SLAM path."""
+    if launches.get(patch.KERNEL, 0) != k2_per_frame * frames:
         raise AssertionError(f"K2 launched {launches.get(patch.KERNEL, 0)} times over "
-                             f"{frames} frames on the {path} path")
-    for pol in POLICIES:
+                             f"{frames} frames on the {path} path, not {k2_per_frame} "
+                             f"a frame")
+    for pol in policies:
         if launches.get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
             raise AssertionError(f"K1 was not launched by the {pol} policy on the "
                                  f"{path} path")
+
+
+def check_agree(run: dict, plain: dict, path: str) -> None:
+    """A plain-kernel rerun launched nothing and agrees with the kernel
+    run: init frame, IMU-init keyframe, iba_stage, keyframe and point
+    counts, camera centres within AGREE_CENTRE_TOL."""
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain-kernel {path} run launched kernels: "
+                             f"{json.dumps(plain['launches'], sort_keys=True)}")
+    d_centre = max(float(np.abs(a[2] - b[2]).max())
+                   for a, b in zip(run["poses"], plain["poses"]))
+    log(f"kernel vs plain {path} on the card: init frame {run['init']} vs "
+        f"{plain['init']}, IMU init {run['events'].get('imu_init')} vs "
+        f"{plain['events'].get('imu_init')}, iba_stage {run['iba_stage']} vs "
+        f"{plain['iba_stage']}, keyframes {run['keyframes']} vs {plain['keyframes']}, "
+        f"points {run['points']} vs {plain['points']}, max camera-centre diff "
+        f"{d_centre:.3e} m")
+    if (plain["init"] != run["init"]
+            or plain["events"].get("imu_init") != run["events"].get("imu_init")
+            or plain["iba_stage"] != run["iba_stage"]
+            or plain["keyframes"] != run["keyframes"] or plain["points"] != run["points"]
+            or len(plain["poses"]) != len(run["poses"]) or d_centre > AGREE_CENTRE_TOL):
+        raise AssertionError(f"kernel and plain {path} runs disagree")
+
+
+def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_gt,
+                reference: dict, smi: str, imu=None, depth_factor: float = 1.0) -> dict:
+    """A stereo / RGB-D (-inertial) SLAM run on the card from settings
+    parsed out of `yaml_text`, its checks against the rendered truth and
+    the JAX package's `reference`, and its plain-kernel rerun."""
+    camera, cfg, R1 = settings_config(yaml_text, sensor)
+    stereo = cfg.sensor in (Sensor.STEREO, Sensor.IMU_STEREO)
+    log(f"{path}: sensor {cfg.sensor.name}, camera "
+        f"{[round(float(v), 4) for v in camera.params[:4]]}, bf {cfg.tracker.bf:.4f}, "
+        f"th_depth {cfg.tracker.th_depth}, rectified {cfg.tracker.rectify is not None}")
+    t0 = time.perf_counter()
+    run = run_slam(camera, cfg, frames, stamps, imu=imu, depth_factor=depth_factor)
+    seconds = time.perf_counter() - t0
+    m = run["map"]
+    ks = m.keyframe_ids()
+    # the truth in the rectified camera's frame (the centres are unchanged)
+    met = vi_metrics(run["poses"], m.kf_R[ks], m.kf_t[ks], m.kf_ts[ks], stamps,
+                     np.einsum("ij,njk->nik", R1, R_gt), np.einsum("ij,nj->ni", R1, t_gt))
+    init = run["init"]
+    after = run["tracked"][init:] if init >= 0 else []
+    share = sum(after) / max(len(after), 1)
+    bound = reference["ate_metric"] * DEPTH_ATE_MARGIN
+    launches = run["launches"]
+    log(f"{path}: initialized at frame {init}; tracked {sum(after)}/{len(after)} from init "
+        f"({share:.3f}); {run['keyframes']} keyframes, {run['points']} points; metric ATE "
+        f"{met['ate_metric']:.5f} m (bound {bound:.5f} m = JAX package's "
+        f"{reference['ate_metric']} m x {DEPTH_ATE_MARGIN}), Sim3-aligned "
+        f"{met['ate_sim3']:.5f} m; {seconds:.1f} s for the run")
+    if imu is not None:
+        log(f"{path}: IMU initialized {run['imu_initialized']} (frame, keyframe uid) "
+            f"{run['events'].get('imu_init')}; VIBA1 at frame {run['events'].get('viba1')}, "
+            f"VIBA2 at frame {run['events'].get('viba2')}; iba_stage {run['iba_stage']} (JAX "
+            f"package: {reference['iba_stage']}); keyframe scale {met['kf_scale']:.5f}; "
+            f"gravity tilt {met['gravity_tilt_deg']:.3f} deg (JAX package "
+            f"{reference['gravity_tilt_deg']} deg)")
+    log(f"launches on the {path} path: {json.dumps(launches, sort_keys=True)}")
+    report_times(run, smi, "track_stereo" if stereo else "track_rgbd")
+    if not 0 <= init <= MAX_DEPTH_INIT_FRAME:
+        raise AssertionError(f"the {path} map initialized at frame {init}")
+    if share < TRACKED_SHARE:
+        raise AssertionError(f"{path}: tracked {share:.3f} of the frames after init")
+    if not met["ate_metric"] <= bound:
+        raise AssertionError(f"{path}: metric ATE {met['ate_metric']} m over {bound} m")
+    if imu is not None:
+        if not run["imu_initialized"]:
+            raise AssertionError(f"{path}: the IMU did not initialize")
+        if run["iba_stage"] != reference["iba_stage"]:
+            raise AssertionError(f"{path}: iba_stage {run['iba_stage']}, the JAX package "
+                                 f"reaches {reference['iba_stage']}")
+    check_policies(launches, len(frames), path,
+                   DEPTH_POLICIES + (("stereo",) if stereo else ()),
+                   k2_per_frame=2 if stereo else 1)
+    n_stereo = launches.get(f"{hamming.KERNEL}[stereo]", 0)
+    if stereo and n_stereo != len(frames):
+        raise AssertionError(f"{path}: K1 ran {n_stereo} times under the stereo policy "
+                             f"over {len(frames)} frames")
+    plain = run_slam(camera, cfg, frames, stamps, plain=True, imu=imu,
+                     depth_factor=depth_factor)
+    check_agree(run, plain, path)
+    return run
+
+
+def fisheye_pair(dev):
+    """K1's input at one full-size fisheye pair through
+    `fisheye_stereo_match` on the card: (words_l, words_r, all-valid mask),
+    after holding the match's kernel result exactly against its plain
+    version."""
+    kb_l = Camera.kb8(*TUMVI_CAM0, width=FISHEYE_SIZE, height=FISHEYE_SIZE, device="cpu")
+    kb_r = Camera.kb8(*TUMVI_CAM1, width=FISHEYE_SIZE, height=FISHEYE_SIZE, device="cpu")
+    T = stereo_extrinsics(0.101, 0.005)
+    R12, t12 = T[:3, :3], T[:3, 3]
+    R, t = orbit_trajectory(n_frames=SLAM_FRAMES, radius=2.0, center=(4.0, 2.0, 9.0), arc=1.0)
+    scene = BoxScene.default(seed=7)
+    img_l = scene.render(None, R[0], t[0], FISHEYE_SIZE, FISHEYE_SIZE, seed=0, camera=kb_l)
+    img_r = scene.render(None, R12.T @ R[0], R12.T @ (t[0] - t12), FISHEYE_SIZE,
+                         FISHEYE_SIZE, seed=500000, camera=kb_r)
+    fl, fr = (extract_features(torch.as_tensor(im, dtype=torch.float32, device=dev),
+                               n_features=FISHEYE_FEATURES, n_levels=N_LEVELS, scale=SCALE)
+              for im in (img_l, img_r))
+    args = (fl.uv, fl.desc, fl.valid, fr.uv, fr.desc, fr.valid, kb_l.to(dev), kb_r.to(dev),
+            torch.as_tensor(R12.T, dtype=torch.float32, device=dev),
+            torch.as_tensor(-R12.T @ t12, dtype=torch.float32, device=dev))
+    with capture(hamming, "masked_top2") as calls:
+        got = fisheye_stereo_match(*args)
+    with plain_kernels():
+        ref = fisheye_stereo_match(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("fisheye_stereo_match differs between K1 and its plain version")
+    good = got[1]
+    log(f"fisheye pair ({FISHEYE_SIZE}x{FISHEYE_SIZE}, {FISHEYE_FEATURES} features): "
+        f"{int(fl.valid.sum())} x {int(fr.valid.sum())} valid, {int(good.sum())} "
+        f"triangulated, median depth "
+        f"{float(got[0][good].median()) if bool(good.any()) else 0.0:.3f} m; kernel and "
+        f"plain results identical")
+    (a, b, mask), kw = calls[0]
+    if kw.get("policy") != "fisheye_stereo":
+        raise AssertionError(f"the fisheye match ran K1 under {kw.get('policy')}")
+    return hamming._as_words(a), hamming._as_words(b), mask
 
 
 def main() -> int:
@@ -759,6 +1078,38 @@ def main() -> int:
                 or len(vplain["poses"]) != len(vi["poses"]) or d_centre > AGREE_CENTRE_TOL):
             raise AssertionError("kernel and plain VI SLAM runs disagree")
 
+    (f0, d0), (f1, d1) = EUROC_CAM0, EUROC_CAM1
+    with phase("stereo SLAM at full width"):
+        t0 = time.perf_counter()
+        left, right, R_gt, t_gt, stamps = orbit_stereo_sequence(
+            STEREO_FRAMES, W, H, f0, d0, right=(f1, d1), T_c1_c2=EUROC_T_C1_C2)
+        log(f"rendered {STEREO_FRAMES} raw stereo pairs at {W}x{H} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        st_run = depth_phase("stereo SLAM", EUROC_STEREO_YAML, "stereo",
+                             list(zip(left, right)), stamps, R_gt, t_gt, STEREO_REFERENCE, smi)
+
+    with phase("RGB-D SLAM at full width"):
+        t0 = time.perf_counter()
+        th, tw = TUM1_SIZE
+        rgbd = rgbd_sequence(RGBD_FRAMES, tw, th, TUM1_INTRINSICS)
+        log(f"rendered {RGBD_FRAMES} frames at {tw}x{th} with uint16 depth in "
+            f"{time.perf_counter() - t0:.2f} s")
+        factor = 1.0 / Settings.from_text(TUM1_RGBD_YAML, "rgbd").depth_map_factor
+        rgbd_run = depth_phase("RGB-D SLAM", TUM1_RGBD_YAML, "rgbd",
+                               list(zip(rgbd.images, rgbd.depth)), rgbd.frame_ts, rgbd.R_cw,
+                               rgbd.t_cw, RGBD_REFERENCE, smi, depth_factor=factor)
+
+    with phase("stereo-inertial SLAM at full width"):
+        t0 = time.perf_counter()
+        sv = vi_sequence(STEREO_VI_FRAMES, W, H, f0, pinhole_dist=d0, T_c1_c2=EUROC_T_C1_C2,
+                         right=(f1, d1))
+        sv_batches = imu_batches(sv.frame_ts, sv.imu_ts, sv.gyro, sv.acc)
+        log(f"rendered {STEREO_VI_FRAMES} raw stereo pairs at {W}x{H} with "
+            f"{len(sv.imu_ts)} IMU samples in {time.perf_counter() - t0:.2f} s")
+        sv_run = depth_phase("stereo-inertial SLAM", EUROC_STEREO_INERTIAL_YAML, "imu_stereo",
+                             list(zip(sv.images, sv.images_right)), sv.frame_ts, sv.R_cw,
+                             sv.t_cw, STEREO_VI_REFERENCE, smi, imu=sv_batches)
+
     with phase("timings"):
         extract_ms = median_frame_ms(lambda: extract_features(
             img, n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE))
@@ -767,6 +1118,7 @@ def main() -> int:
             f"{track_ms:.3f} ms/frame (median of {FRAMES} frames)")
 
         # each kernel at inputs the SLAM run handed it
+        depth_runs = (("stereo", st_run), ("rgbd", rgbd_run), ("stereo_vi", sv_run))
         atlas, y0, x0 = run["k2_input"]
         kernels[patch.KERNEL] = dict(
             name=patch.KERNEL, route="cuda", source="orbslam3_tpu_torch/csrc/patch_gather.cu",
@@ -774,10 +1126,15 @@ def main() -> int:
             launches=slam_launches.get(patch.KERNEL, 0),
             launches_front_end=front_launches.get(patch.KERNEL, 0),
             launches_vi=vi_launches.get(patch.KERNEL, 0),
+            **{f"launches_{key}": r["launches"].get(patch.KERNEL, 0) for key, r in depth_runs},
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
+        # K1 at one captured mask of each policy: the mono run's four, the
+        # stereo run's row band, and one fisheye pair's all-valid mask
+        masks = [(pol, run["k1_inputs"][pol], slam_launches) for pol in POLICIES]
+        masks.append(("stereo", st_run["k1_inputs"]["stereo"], st_run["launches"]))
+        masks.append(("fisheye_stereo", fisheye_pair(dev), {}))
         policies = []
-        for pol in POLICIES:
-            a, b, mask = run["k1_inputs"][pol]
+        for pol, (a, b, mask), launched in masks:
             rec = k1_times(a, b, mask)
             policies.append(dict(policy=pol, shape=list(mask.shape), **rec))
             log(f"masked_top2 at the {pol} policy's mask {tuple(mask.shape)}: "
@@ -785,7 +1142,7 @@ def main() -> int:
                 f"{rec['ms'] * 1e3:.2f} us (bound {rec['bound_ms'] * 1e3:.2f} us by "
                 f"{rec['bound_by']}), plain {rec['plain_ms'] * 1e3:.2f} us, library "
                 f"{rec['library_ms'] * 1e3:.2f} us; exact vs plain; "
-                f"{slam_launches.get(f'{hamming.KERNEL}[{pol}]', 0)} launches")
+                f"{launched.get(f'{hamming.KERNEL}[{pol}]', 0)} launches on its SLAM path")
         k1 = {k: v for k, v in policies[0].items()
               if k in ("ms", "plain_ms", "plain_timed_by", "bound_ms", "bound_by",
                        "library_ms")}
@@ -799,6 +1156,10 @@ def main() -> int:
             launches_vi=vi_launches.get(hamming.KERNEL, 0),
             launches_by_policy_vi={pol: vi_launches.get(f"{hamming.KERNEL}[{pol}]", 0)
                                    for pol in POLICIES},
+            **{f"launches_{key}": r["launches"].get(hamming.KERNEL, 0) for key, r in depth_runs},
+            **{f"launches_by_policy_{key}": {
+                pol: r["launches"].get(f"{hamming.KERNEL}[{pol}]", 0)
+                for pol in DEPTH_POLICIES + ("stereo",)} for key, r in depth_runs},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

@@ -75,7 +75,7 @@ def preintegrated(src, device=None) -> Preintegrated:
 MAP_ARRAYS = (
     "kf_R", "kf_t", "kf_valid", "kf_ts", "kf_frame_id", "kf_uv", "kf_octave",
     "kf_angle", "kf_desc", "kf_feat_valid", "kf_obs_mp", "kf_prev", "kf_uid",
-    "kf_vel", "kf_bias",
+    "kf_vel", "kf_bias", "kf_uright",
     "mp_pos", "mp_desc", "mp_valid", "mp_normal", "mp_min_dist", "mp_max_dist",
     "mp_visible", "mp_found", "mp_first_kf", "mp_ref_kf", "mp_uid",
 )
@@ -84,7 +84,8 @@ MAP_ARRAYS = (
 def map_state(src, device=None) -> MapState:
     """The port's `MapState` from a JAX `MapState` (or any object with its
     numpy arrays and counters): keyframe poses, features, observations,
-    point positions, descriptors (uint32 words, as both maps store them),
+    the stereo right coordinates, point positions, descriptors (uint32
+    words, as both maps store them),
     normals, scale bands and counters, uids and cull anchors, and the
     inertial state (velocities, biases, the preintegration chain on
     `device`, the IMU-init flags and the last re-gauge). The covisibility

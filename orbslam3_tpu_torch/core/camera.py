@@ -53,6 +53,14 @@ class Camera:
     def to(self, device) -> "Camera":
         return dataclasses.replace(self, params=self.params.to(device))
 
+    @property
+    def K(self) -> torch.Tensor:
+        """(3,3) intrinsic matrix [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]."""
+        fx, fy, cx, cy = self.params[0], self.params[1], self.params[2], self.params[3]
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, z, cx]), torch.stack([z, fy, cy]),
+                            torch.stack([z, z, o])])
+
     def project(self, xc: torch.Tensor) -> torch.Tensor:
         """Camera-frame points (...,3) -> pixel coords (...,2)."""
         if self.kind == PINHOLE:
@@ -196,7 +204,9 @@ def kb8_unproject(params: torch.Tensor, uv: torch.Tensor,
 
 
 def kb8_project_jac(params: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
-    """d(uv)/d(xc) for KB8 by forward-mode autodiff of the projection."""
+    """d(uv)/d(xc) for KB8 by forward-mode autodiff of the projection. Each
+    point goes through as a batch of one: on 0-dim operands, arithmetic with
+    Python numbers under `jacfwd` gives float64 tangents."""
     flat = xc.reshape(-1, 3)
-    jac = torch.func.vmap(torch.func.jacfwd(lambda p: kb8_project(params, p)))(flat)
+    jac = torch.func.vmap(torch.func.jacfwd(lambda p: kb8_project(params, p[None])[0]))(flat)
     return jac.reshape(xc.shape[:-1] + (2, 3))

@@ -238,6 +238,54 @@ class BoxScene:
         return img
 
 
+def _K(intrinsics) -> np.ndarray:
+    fx, fy, cx, cy = intrinsics
+    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+
+
+def _render_camera(intrinsics, dist, width: int, height: int):
+    """The renderer's camera: None (rays through K) for an ideal pinhole,
+    else a rad-tan pinhole, so the raw image carries the distortion."""
+    if not any(abs(float(k)) > 0.0 for k in dist):
+        return None
+    from orbslam3_tpu_torch.core.camera import Camera
+    return Camera.pinhole(*intrinsics, dist=tuple(dist), width=width, height=height,
+                          device="cpu")
+
+
+def stereo_extrinsics(baseline: float, rot: float = 0.0) -> np.ndarray:
+    """T_c1_c2 (4,4), the pose of the right camera in the left (x_c1 =
+    R12 x_c2 + t12), as the EuRoC writer builds it: `baseline` m along x
+    and `rot` rad about y (its `stereo_rot`)."""
+    from scipy.spatial.transform import Rotation
+    T = np.eye(4)
+    T[:3, :3] = Rotation.from_rotvec([0.0, rot, 0.0]).as_matrix()
+    T[0, 3] = baseline
+    return T
+
+
+def _render_views(scene, R_cw, t_cw, width, height, intrinsics, dist, seeds,
+                  right=None, T_c1_c2=None):
+    """The left views (F, H, W) uint8 at `seeds`, and with `T_c1_c2` the
+    right views through the right camera `right` = (intrinsics, dist) at
+    seeds + 500000, the right pose x_c2 = R12^T (x_c1 - t12) (None
+    without)."""
+    cam_l = _render_camera(intrinsics, dist, width, height)
+    left = np.stack([scene.render(_K(intrinsics), R_cw[i], t_cw[i], width, height,
+                                  seed=int(seeds[i]), camera=cam_l)
+                     for i in range(len(R_cw))])
+    if T_c1_c2 is None:
+        return left, None
+    intr_r, dist_r = right if right is not None else (intrinsics, dist)
+    cam_r = _render_camera(intr_r, dist_r, width, height)
+    R12, t12 = np.asarray(T_c1_c2)[:3, :3], np.asarray(T_c1_c2)[:3, 3]
+    right_views = np.stack([
+        scene.render(_K(intr_r), R12.T @ R_cw[i], R12.T @ (t_cw[i] - t12), width,
+                     height, seed=int(seeds[i]) + 500000, camera=cam_r)
+        for i in range(len(R_cw))])
+    return left, right_views
+
+
 def orbit_sequence(n_frames: int = 40, width: int = 752, height: int = 480,
                    intrinsics=(458.654, 457.296, 367.215, 248.375),
                    seed: int = 7, radius: float = 2.0, center=(4.0, 2.0, 9.0),
@@ -249,13 +297,27 @@ def orbit_sequence(n_frames: int = 40, width: int = 752, height: int = 480,
     initialization finds no clear motion. Returns (images (n, h, w) uint8,
     R_cw (n,3,3), t_cw (n,3), timestamps (n,))."""
     from orbslam3_tpu_torch.utils.synth import orbit_trajectory
-    fx, fy, cx, cy = intrinsics
-    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
     scene = BoxScene.default(seed=seed)
     R, t = orbit_trajectory(n_frames=n_frames, radius=radius, center=center, arc=arc)
-    imgs = np.stack([scene.render(K, R[i], t[i], width, height, seed=i)
-                     for i in range(n_frames)])
+    imgs, _ = _render_views(scene, R, t, width, height, intrinsics, (), np.arange(n_frames))
     return imgs, R, t, np.arange(n_frames) / fps
+
+
+def orbit_stereo_sequence(n_frames: int, width: int, height: int, intrinsics, dist,
+                          right, T_c1_c2, seed: int = 7, radius: float = 2.0,
+                          center=(4.0, 2.0, 9.0), arc: float = 1.0, fps: float = 20.0):
+    """`orbit_sequence`'s orbit seen by a raw stereo pair: the left camera
+    (`intrinsics`, rad-tan `dist`) renders as `orbit_sequence` does, the
+    right one (`right` = (intrinsics, dist)) from T_c1_c2, the pose of the
+    right camera in the left, with seeds i + 500000.
+    Returns (left (n, h, w) uint8, right, R_cw (n,3,3), t_cw (n,3),
+    timestamps (n,)); the poses are the left camera's."""
+    from orbslam3_tpu_torch.utils.synth import orbit_trajectory
+    scene = BoxScene.default(seed=seed)
+    R, t = orbit_trajectory(n_frames=n_frames, radius=radius, center=center, arc=arc)
+    left, right_views = _render_views(scene, R, t, width, height, intrinsics, dist,
+                                      np.arange(n_frames), right=right, T_c1_c2=T_c1_c2)
+    return left, right_views, R, t, np.arange(n_frames) / fps
 
 
 def excited_trajectory(n_frames: int, fps: float, imu_rate: float, center,
@@ -329,6 +391,18 @@ class ViSequence:
     gyro: np.ndarray      # (K,3) rad/s, body frame, with noise
     acc: np.ndarray       # (K,3) m/s^2, body frame, with noise
     R_wb: np.ndarray      # (F,3,3) ground-truth body rotations (body == camera)
+    images_right: np.ndarray = None  # (F, H, W) uint8 of a stereo sequence
+
+
+@dataclasses.dataclass
+class RgbdSequence:
+    """A rendered RGB-D sequence held in memory."""
+    images: np.ndarray    # (F, H, W) uint8
+    depth: np.ndarray     # (F, H, W) uint16, metres x depth_factor
+    R_cw: np.ndarray      # (F,3,3) ground-truth world->camera
+    t_cw: np.ndarray      # (F,3)
+    frame_ts: np.ndarray  # (F,) seconds
+    depth_factor: float   # the map's units per metre (TUM: 5000)
 
 
 def vi_sequence(n_frames: int = 120, width: int = 752, height: int = 480,
@@ -336,16 +410,25 @@ def vi_sequence(n_frames: int = 120, width: int = 752, height: int = 480,
                 fps: float = 20.0, imu_rate: float = 200.0, radius: float = 3.0,
                 arc: float = 1.0, excitation: float = 0.05,
                 rot_excitation: float = 0.06, imu_noise: bool = True,
-                render: bool = True) -> ViSequence:
+                render: bool = True, stereo_baseline: float = 0.0,
+                pinhole_dist=(), stereo_rot=0.0, T_c1_c2=None,
+                right=None) -> ViSequence:
     """The mono-inertial sequence of `orbslam3_tpu/datasets/synth_euroc.py:
     write_synth_euroc`, in memory: `excited_trajectory` around the centre
     of `BoxScene.default(seed)` raised 3 m, frames rendered with seed
     `seed * 1000 + i`, IMU noise of 2e-4 rad/s and 2e-3 m/s^2 drawn from
     `seed + 5`, timestamps from 100 s, and one IMU sample 5 ms before the
     first frame, as the writer lays them out (no png, no csv, no YAML).
-    With ``render=False`` the images are left out (None)."""
-    fx, fy, cx, cy = intrinsics
-    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    With ``render=False`` the images are left out (None).
+
+    The writer's stereo options: `pinhole_dist` renders raw rad-tan images,
+    and `stereo_baseline` > 0 adds the right view (`images_right`) from
+    `stereo_extrinsics(stereo_baseline, stereo_rot)`, with seeds
+    `seed * 1000 + i + 500000`. Beyond the writer, `T_c1_c2` gives the
+    pair's extrinsics whole and `right` = (intrinsics, dist) a right camera
+    of its own (default the left's)."""
+    if T_c1_c2 is None and stereo_baseline > 0:
+        T_c1_c2 = stereo_extrinsics(stereo_baseline, stereo_rot)
     scene = BoxScene.default(seed=seed)
     c = (scene.lo + scene.hi) / 2.0
     center = (float(c[0]), float(c[1]), float(c[2]) + 3.0)
@@ -353,9 +436,11 @@ def vi_sequence(n_frames: int = 120, width: int = 752, height: int = 480,
         n_frames, fps, imu_rate, center, radius, arc, excitation=excitation,
         rot_excitation=rot_excitation, seed=seed)
     t0 = 100.0
-    imgs = None if not render else np.stack(
-        [scene.render(K, R_cw[i], t_cw[i], width, height, seed=seed * 1000 + i)
-         for i in range(n_frames)])
+    imgs = imgs_r = None
+    if render:
+        imgs, imgs_r = _render_views(scene, R_cw, t_cw, width, height, intrinsics,
+                                     pinhole_dist, seed * 1000 + np.arange(n_frames),
+                                     right=right, T_c1_c2=T_c1_c2)
     rng = np.random.default_rng(seed + 5)
     if imu_noise:
         gyro = gyro + rng.normal(0, 2e-4, gyro.shape)
@@ -365,7 +450,38 @@ def vi_sequence(n_frames: int = 120, width: int = 752, height: int = 480,
     acc = np.concatenate([acc[:1], acc])
     return ViSequence(images=imgs, R_cw=R_cw, t_cw=t_cw,
                       frame_ts=t0 + np.arange(n_frames) / fps, imu_ts=imu_ts,
-                      gyro=gyro, acc=acc, R_wb=np.swapaxes(R_cw, 1, 2))
+                      gyro=gyro, acc=acc, R_wb=np.swapaxes(R_cw, 1, 2),
+                      images_right=imgs_r)
+
+
+def rgbd_sequence(n_frames: int = 80, width: int = 320, height: int = 240,
+                  intrinsics=None, fps: float = 20.0, seed: int = 0,
+                  radius: float = 3.0, arc: float = 1.0,
+                  depth_factor: float = 5000.0) -> RgbdSequence:
+    """The RGB-D sequence of `orbslam3_tpu/datasets/tum_rgbd.py:
+    write_synth_tum_rgbd`, in memory: `excited_trajectory` (3 cm of shake,
+    no rotational excitation) around the centre of `BoxScene.default(seed)`
+    raised 3 m, frames rendered with seed `seed * 1000 + i` and their exact
+    registered depth quantized to uint16 at `depth_factor` as the writer's
+    PNG holds it, TUM-era timestamps from 1305031100 s (no png, no list
+    files, no YAML). `intrinsics` (fx, fy, cx, cy) default to the writer's
+    (240, 240, width / 2, height / 2)."""
+    if intrinsics is None:
+        intrinsics = (240.0, 240.0, width / 2.0, height / 2.0)
+    scene = BoxScene.default(seed=seed)
+    c = (scene.lo + scene.hi) / 2.0
+    center = (float(c[0]), float(c[1]), float(c[2]) + 3.0)
+    R_cw, t_cw, _, _, _, _ = excited_trajectory(n_frames, fps, 200.0, center, radius,
+                                                arc, excitation=0.03, seed=seed)
+    imgs, depth = [], []
+    for i in range(n_frames):
+        img, d = scene.render(_K(intrinsics), R_cw[i], t_cw[i], width, height,
+                              seed=seed * 1000 + i, return_depth=True)
+        imgs.append(img)
+        depth.append(np.clip(d * depth_factor, 0, 65535).astype(np.uint16))
+    return RgbdSequence(images=np.stack(imgs), depth=np.stack(depth), R_cw=R_cw,
+                        t_cw=t_cw, frame_ts=1305031100.0 + np.arange(n_frames) / fps,
+                        depth_factor=depth_factor)
 
 
 def imu_batches(frame_ts, imu_ts, gyro, acc):

@@ -1,7 +1,7 @@
 """Local mapping back end: map-point creation, fusion, local BA, culling.
 
 Port of `orbslam3_tpu/engine/local_mapping.py` (ORB-SLAM3's `LocalMapping`),
-the visual and mono-inertial paths: `ProcessNewKeyFrame`,
+for every sensor: `ProcessNewKeyFrame`,
 `MapPointCulling`, `CreateNewMapPoints` (epipolar triangulation with
 covisible neighbours), `SearchInNeighbors` (fuse), the local BA (over a
 covisibility window, or over the last keyframes of the temporal chain with
@@ -12,7 +12,9 @@ synchronously when a keyframe is inserted.
 The map stays on the host (numpy); each stage builds the padded device
 tensors it needs on `device` (the card unless ``device="cpu"``). Keyframe
 and map-point descriptors go to kernel K1 as the packed words the map
-stores. Stereo residuals belong to ROADMAP slice C and raise.
+stores. With `bf` > 0 (stereo and RGB-D maps) the visual BA takes the
+keyframes' right coordinates as stereo rows; with `fix_scale` the IMU
+ladder holds the already metric scale at 1.
 """
 
 from __future__ import annotations
@@ -58,11 +60,12 @@ class LocalMapperConfig:
 
 class LocalMapper:
     def __init__(self, camera, slam_map: MapState, cfg: LocalMapperConfig = None,
-                 imu_calib=None, bf: float = 0.0, device=None):
-        if bf > 0:
-            raise NotImplementedError(
-                "LocalMapper: stereo residuals in BA are ROADMAP slice C, "
-                "not yet ported")
+                 imu_calib=None, bf: float = 0.0, fix_scale: bool = False,
+                 device=None):
+        self.bf = bf  # baseline * fx: > 0 adds the stereo rows to the BA
+        # stereo and RGB-D maps are metric: the IMU ladder holds s = 1 (a
+        # free scale could land in a wrong basin and wreck the map)
+        self.fix_scale = fix_scale
         self.device = device_policy.resolve(device)
         self.camera = camera.to(self.device)
         self.map = slam_map
@@ -133,10 +136,11 @@ class LocalMapper:
 
     def _imu_init_ladder(self, k: int):
         """The staged IMU initialization: first init, then VIBA1 and VIBA2
-        after `viba1_after_s` and `viba2_after_s`, then monocular scale
-        refinement every `scale_refine_every_s` up to
-        `scale_refine_until_s`. Before the first init, a platform that has
-        barely moved over twice the init span is flagged `bad_imu`."""
+        after `viba1_after_s` and `viba2_after_s` (each with s held at 1
+        under `fix_scale`), then, on a monocular map, scale refinement
+        every `scale_refine_every_s` up to `scale_refine_until_s`. Before
+        the first init, a platform that has barely moved over twice the
+        init span is flagged `bad_imu`."""
         if self.imu_calib is None:
             return
         m, cfg = self.map, self.cfg
@@ -145,7 +149,7 @@ class LocalMapper:
             return
         span = float(m.kf_ts[kfs[-1]] - m.kf_ts[kfs[0]])
         now = float(m.kf_ts[k])
-        rung = dict(calib=self.imu_calib, device=self.device)
+        rung = dict(calib=self.imu_calib, fix_scale=self.fix_scale, device=self.device)
         if not m.imu_initialized:
             if span >= 2.0 * cfg.imu_init_min_span_s:
                 centers = np.stack([-m.kf_R[i].T @ m.kf_t[i] for i in kfs])
@@ -169,11 +173,13 @@ class LocalMapper:
                 m.iba_stage = 2
                 self._full_viba()
                 self._last_scale_refine = now
-        elif (m.iba_stage == 2 and elapsed <= cfg.scale_refine_until_s
+        elif (m.iba_stage == 2 and self.bf <= 0 and elapsed <= cfg.scale_refine_until_s
               and now - self._last_scale_refine >= cfg.scale_refine_every_s):
-            # scale and gravity only; the biases pinned by large priors
+            # monocular scale refinement: scale and gravity only, the
+            # biases pinned by large priors
             self._last_scale_refine = now
-            imu_init.initialize_imu(m, prior_gyro=1e6, prior_acc=1e10, fix_vel=True, **rung)
+            imu_init.initialize_imu(m, self.imu_calib, prior_gyro=1e6, prior_acc=1e10,
+                                    fix_vel=True, device=self.device)
 
     # --------------------------------------------------------------- culling
     def _cull_map_points(self):
@@ -481,13 +487,18 @@ class LocalMapper:
         uv[:O] = m.kf_uv[kk, slots]
         info[:O] = 1.0 / (1.2 ** (2 * m.kf_octave[kk, slots]))
         valid[:O] = True
+        stereo = {}
+        if self.bf > 0:
+            u_r = np.full(O_cap, -1.0, np.float32)
+            u_r[:O] = m.kf_uright[kk, slots]
+            stereo = dict(u_r=self._t(u_r), bf=self._t(np.float32(self.bf)))
         prob = BAProblem(
             R=self._t(m.kf_R[kf_rows]), t=self._t(m.kf_t[kf_rows]),
             points=self._t(m.mp_pos[lm_rows]),
             kf_idx=self._t(kf_idx), lm_idx=self._t(lm_idx),
             uv=self._t(uv), info=self._t(info), valid=self._t(valid),
             fixed_kf=self._t(fixed_mask),
-            fixed_lm=self._t(np.arange(P_cap) >= len(mp_ids)))
+            fixed_lm=self._t(np.arange(P_cap) >= len(mp_ids)), **stereo)
         return prob, fixed_mask, mp_ids, kk, slots, mm, info, O
 
     def _apply_ba_result(self, out, ba_outlier, all_kfs, fixed_mask, mp_ids,

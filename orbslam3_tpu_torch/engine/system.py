@@ -1,16 +1,16 @@
 """System facade: the engine's entry points.
 
-Port of `orbslam3_tpu/engine/system.py` (ORB-SLAM3's `System`), the
-monocular and mono-inertial paths: it owns the Atlas, one tracking lane per
-client and the shared local mapper, routes frames and IMU samples
-(`track_monocular`, `track_features`), stores or resets maps on tracking
+Port of `orbslam3_tpu/engine/system.py` (ORB-SLAM3's `System`) for every
+sensor (monocular, stereo, RGB-D, each with or without an IMU): it owns
+the Atlas, one tracking lane per client and the shared local mapper,
+routes frames and IMU samples (`track_monocular`, `track_stereo`,
+`track_rgbd`, `track_features`), stores or resets maps on tracking
 loss, a bad IMU or a timestamp jump, and exports trajectories
 (`save_trajectory_tum` / `_euroc` / `_kitti`). Everything runs on `device`
 (the card unless ``device="cpu"``).
 
-Not ported yet, and raising where asked for: stereo, RGB-D and their
-trackers, with or without an IMU (ROADMAP slice C), the vocabulary with
-loop closing and relocalization (slice E), atlas load and save (slice F),
+Not ported yet, and raising where asked for: the vocabulary with loop
+closing and relocalization (ROADMAP slice E), atlas load and save (slice F),
 the edge server's wire features (slice H), and `async_mapping=True`.
 """
 
@@ -39,6 +39,11 @@ class Sensor(enum.Enum):
     IMU_MONOCULAR = 3
     IMU_STEREO = 4
     IMU_RGBD = 5
+
+
+INERTIAL = (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD)
+# sensors whose maps are metric from the start: the IMU ladder holds s = 1
+WITH_DEPTH = (Sensor.STEREO, Sensor.RGBD, Sensor.IMU_STEREO, Sensor.IMU_RGBD)
 
 
 @dataclass
@@ -92,10 +97,9 @@ class Slam:
                               "slice E")
         if load_atlas_from:
             raise _not_ported("loading an atlas", "slice F")
-        if self.cfg.sensor not in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
-            raise _not_ported(f"sensor {self.cfg.sensor.name}", "slice C")
-        if self.cfg.sensor == Sensor.IMU_MONOCULAR and self.cfg.imu_calib is None:
-            raise ValueError("Slam: Sensor.IMU_MONOCULAR needs SystemConfig.imu_calib")
+        if self.cfg.sensor in INERTIAL and self.cfg.imu_calib is None:
+            raise ValueError(f"Slam: Sensor.{self.cfg.sensor.name} needs "
+                             "SystemConfig.imu_calib")
         if self.cfg.async_mapping:
             raise _not_ported("async_mapping=True (the reference's "
                               "engine/async_engine.py)", "slice B")
@@ -112,7 +116,8 @@ class Slam:
 
     def _make_backend(self) -> LocalMapper:
         return LocalMapper(self.camera, self.atlas.active, cfg=self.cfg.mapper,
-                           imu_calib=self._imu_calib(), device=self.device)
+                           imu_calib=self._imu_calib(), bf=self.cfg.tracker.bf,
+                           fix_scale=self.cfg.sensor in WITH_DEPTH, device=self.device)
 
     def _make_tracker(self, client_id: int) -> Tracker:
         return Tracker(self.camera, self.atlas.active, self.cfg.tracker,
@@ -121,7 +126,7 @@ class Slam:
 
     def _imu_calib(self):
         """The IMU calibration of an inertial sensor, else None."""
-        return self.cfg.imu_calib if self.cfg.sensor == Sensor.IMU_MONOCULAR else None
+        return self.cfg.imu_calib if self.cfg.sensor in INERTIAL else None
 
     # ------------------------------------------------------------- clients
     def add_client(self, client_id: int) -> Tracker:
@@ -154,11 +159,27 @@ class Slam:
 
     def track_stereo(self, img_left, img_right, ts: float, imu=None,
                      client_id: int = 0):
-        raise _not_ported("stereo", "slice C")
+        """Reference `System::TrackStereo`: a (H, W) pair, raw or rectified
+        as the tracker's config says, and the IMU samples since the last
+        frame -> the world->camera pose (R, t), or None."""
+        tracker = self.trackers[client_id]
+        if imu is not None:
+            tracker.queue_imu(imu)
+        out = tracker.process_stereo(img_left, img_right, ts)
+        self._after_track(tracker)
+        return out
 
     def track_rgbd(self, img, depth, ts: float, imu=None, client_id: int = 0,
                    depth_factor: float = 1.0):
-        raise _not_ported("RGB-D", "slice C")
+        """Reference `System::TrackRGBD`: an image and its registered depth
+        map (times `depth_factor` gives metres; TUM's uint16 PNG takes
+        1/5000) -> the world->camera pose (R, t), or None."""
+        tracker = self.trackers[client_id]
+        if imu is not None:
+            tracker.queue_imu(imu)
+        out = tracker.process_rgbd(img, depth, ts, depth_factor=depth_factor)
+        self._after_track(tracker)
+        return out
 
     def track_features(self, feats, ts: float, client_id: int = 0, imu=None):
         """Track from pre-extracted `FrameFeatures`."""

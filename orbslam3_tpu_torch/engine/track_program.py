@@ -10,7 +10,9 @@ attempt:
   3: refinement search at the local radius from the accepted attempt;
   4: done (success)   5: done (no acquisition).
 Matched candidate rows are compacted to the front of the GN problem by a
-stable sort, so their order is the candidates' own.
+stable sort, so their order is the candidates' own. With the frame's
+virtual right coordinates (`u_right`, stereo or RGB-D) and `bf`, each
+matched feature's u_r goes into the pose GN as its stereo row.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ def fused_track_pose(
     min_inliers: int,                # refinement acceptance gate (match count)
     max_dist: int = 100,
     device=None,
+    u_right=None,                    # (cap,) virtual right u, -1 = none
+    bf=None,                         # baseline * fx, with `u_right`
 ):
     """Returns (success, result dict of the accepted attempt)."""
     dev = device_policy.resolve(device)
@@ -64,6 +68,8 @@ def fused_track_pose(
     radii = [float(r) for r in radii]
     min_matches, min_inliers = int(min_matches), int(min_inliers)
     allow_last = bool(allow_last)
+    if u_right is not None:
+        u_right = u_right.to(dev)
     ar = torch.arange(cap, device=dev)
 
     def attempt(R0, t0, radius):
@@ -80,8 +86,9 @@ def fused_track_pose(
         uv_obs = f_uv[fsel]
         oct_sel = f_octave[fsel].to(torch.int32)
         info = 1.0 / (1.2 ** (2.0 * oct_sel.float()))
+        u_r = None if u_right is None else torch.where(vsel, u_right[fsel], -1.0)
         R, t, inl, n_in = optimize_pose(R0, t0, pts, uv_obs, info, vsel, camera,
-                                        device=dev)
+                                        device=dev, u_r=u_r, bf=bf)
         return dict(R=R, t=t, sel=sel.to(torch.int32), fidx=fsel.to(torch.int32),
                     vsel=vsel, inl=inl & vsel, nm=nm.to(torch.int32), n_in=n_in,
                     fr=fr, uv=uv_obs, oct=oct_sel)

@@ -1,27 +1,37 @@
 """Tracking front end: the per-frame state machine over the device stages.
 
-Port of `orbslam3_tpu/engine/tracking.py` (ORB-SLAM3's `Tracking`), the
-monocular path with or without an IMU. The host owns the state machine
+Port of `orbslam3_tpu/engine/tracking.py` (ORB-SLAM3's `Tracking`):
+monocular, stereo and RGB-D, each with or without an IMU. The host owns the
+state machine
 (NOT_INITIALIZED / OK / RECENTLY_LOST / LOST); feature extraction,
 projection search, pose optimization and two-view initialization run on
 `device` (the card unless ``device="cpu"``):
 
+- stereo and RGB-D ingestion (`GrabImageStereo` / `GrabImageRGBD`): the
+  raw pair rectified on the device, both images extracted, per-feature
+  depth and virtual right coordinate from the row-band matcher, from the
+  fisheye pair's triangulation, or from the depth map, far depths gated
+  (`thFarPoints`);
+- stereo / RGB-D initialization (`StereoInitialization`): the first frame
+  with enough depths becomes a keyframe with its points unprojected;
 - monocular initialization (`MonocularInitialization` +
   `CreateInitialMapMonocular`): wide-window matching, H/F RANSAC, the map
   bootstrap with median-depth normalization, the init BA;
 - motion-model and local-map tracking through `fused_track_pose` (the
-  projection-search retry ladder and pose GN);
+  projection-search retry ladder and pose GN, with stereo rows where a
+  feature has a right coordinate);
 - with an IMU (`imu_calib`): the sample queue and per-frame
   preintegration (`PreintegrateIMU`), the IMU pose prediction once the map
   is inertial (`PredictStateIMU`), the visual-inertial pose refinement
   (`PoseInertialOptimizationLastKeyFrame` / `LastFrame`), the keyframe
   cadence of inertial maps, the KF->KF preintegration chain, and the
   hand-off after the mapper re-gauges the map (`UpdateFrameIMU`);
-- the keyframe policy (`NeedNewKeyFrame` / `CreateNewKeyFrame`);
+- the keyframe policy (`NeedNewKeyFrame` / `CreateNewKeyFrame`, which
+  on stereo and RGB-D maps spawns points at the close unmatched features);
 - the per-frame relative-pose log for trajectory export.
 
-Not ported yet, and raising where asked for: stereo and RGB-D (ROADMAP
-slice C), relocalization and the BoW fallback (slice E).
+Not ported yet, and raising where asked for: relocalization and the BoW
+fallback (ROADMAP slice E).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inerti
 from orbslam3_tpu_torch.slam_map.map_state import MapState
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.vision import matcher
+from orbslam3_tpu_torch.vision import stereo as stereo_m
 from orbslam3_tpu_torch.vision.frame import FrameFeatures, extract_features
 from orbslam3_tpu_torch.vision.twoview import reconstruct_two_views
 
@@ -56,10 +67,8 @@ class TrackingState(enum.Enum):
 
 @dataclasses.dataclass
 class TrackerConfig:
-    """The reference's `TrackerConfig` fields that the monocular and
-    mono-inertial paths read, with the reference's defaults. Of the stereo
-    and RGB-D fields only the ones that switch those sensors on are here,
-    and setting them raises until ROADMAP slice C."""
+    """The reference's `TrackerConfig` fields, with its defaults (but for
+    `kf_min_interval`, which it reads nowhere)."""
     n_features: int = 600
     init_min_matches: int = 80       # reference: 100 (mono init gate)
     init_window_px: float = 100.0
@@ -78,10 +87,24 @@ class TrackerConfig:
     scale_factor: float = 1.2        # ORBextractor.scaleFactor
     ini_th_fast: float = 20.0        # ORBextractor.iniThFAST
     min_th_fast: float = 7.0         # ORBextractor.minThFAST
+    # thFarPoints: stereo / RGB-D depths beyond this (m) are dropped; 0 = off
+    th_far_points: float = 0.0
     recently_lost_frames: int = 20   # ~1 s at 20 fps
     imu_samples_per_frame: int = 128  # most IMU samples integrated a frame
-    bf: float = 0.0                  # baseline * fx; 0 = mono
+    # stereo / RGB-D (mbf, the close/far split mThDepth)
+    bf: float = 0.0                  # baseline * fx (px m); 0 = mono
+    stereo_min_z: float = 0.1        # closest admissible stereo depth (m)
+    th_depth: float = 35.0           # close-point threshold, in baselines
+    stereo_init_min_points: int = 100  # StereoInitialization gate (ref: 500)
+    # a non-rectified fisheye pair: depth by two-view triangulation with
+    # these extrinsics, no virtual right coordinates (bf = 0)
     fisheye_stereo: bool = False
+    camera2: object = None           # right camera model (default: the left)
+    stereo_R_rl: object = None       # (3,3) right <- left rotation
+    stereo_t_rl: object = None       # (3,)
+    baseline_m: float = 0.0          # metric baseline (the close-point gate)
+    # a raw pinhole pair: `vision.rectify.RectifyMaps`, applied on the
+    # device before extraction
     rectify: object = None
 
 
@@ -116,9 +139,6 @@ class Tracker:
                  imu_calib=None, device=None,
                  sample_fn: Callable | None = None):
         cfg = cfg or TrackerConfig()
-        if cfg.bf > 0 or cfg.fisheye_stereo or cfg.rectify is not None:
-            raise NotImplementedError("Tracker: stereo and RGB-D are ROADMAP "
-                                      "slice C, not yet ported")
         if relocalizer is not None:
             raise NotImplementedError("Tracker: relocalization is ROADMAP "
                                       "slice E, not yet ported")
@@ -146,6 +166,11 @@ class Tracker:
         self._vel_w: Optional[np.ndarray] = None
         self._map_change_seen = -1
         self._gauge_seen = slam_map.gauge_epoch
+        # the current frame's stereo / RGB-D depth and right coordinate
+        # (host numpy, set by process_stereo / process_rgbd)
+        self._cur_depth: Optional[np.ndarray] = None
+        self._cur_uright: Optional[np.ndarray] = None
+        self._rectify = None if cfg.rectify is None else cfg.rectify.to(self.device)
         self.state = TrackingState.NO_IMAGES_YET
         self.reset_request = None
         self._init_feats: Optional[FrameFeatures] = None
@@ -250,13 +275,72 @@ class Tracker:
             feats = self._extract(img)
         return self.process_features(feats, ts)
 
+    def _gate_far_points(self):
+        """thFarPoints: drop stereo / RGB-D depths beyond the configured
+        range (far disparities are noise)."""
+        th = self.cfg.th_far_points
+        if th <= 0 or self._cur_depth is None:
+            return
+        far = self._cur_depth > th
+        self._cur_depth = np.where(far, 0.0, self._cur_depth)
+        if self._cur_uright is not None:
+            self._cur_uright = np.where(far, -1.0, self._cur_uright)
+
+    def _process_with_depth(self, feats: FrameFeatures, ts: float):
+        """`process_features` with this frame's depths, then forget them."""
+        self._gate_far_points()
+        try:
+            return self.process_features(feats, ts)
+        finally:
+            self._cur_depth = None
+            self._cur_uright = None
+
     def process_stereo(self, img_left, img_right, ts: float):
-        raise NotImplementedError("Tracker: stereo is ROADMAP slice C, "
-                                  "not yet ported")
+        """Stereo entry (GrabImageStereo): rectify a raw pinhole pair on the
+        device, extract both images, and give each left feature a depth:
+        by the row-band matcher on a rectified pair, by two-view
+        triangulation on a fisheye pair."""
+        cfg = self.cfg
+        with timing.stage("track.extract"):
+            timing.count("dispatch.extract")
+            if self._rectify is not None:
+                img_left, img_right = self._rectify(img_left, img_right)
+            featsL = self._extract(img_left)
+            featsR = self._extract(img_right)
+        with timing.stage("track.stereo_match"):
+            if cfg.fisheye_stereo:
+                cam2 = self.camera if cfg.camera2 is None else cfg.camera2.to(self.device)
+                depth, good, _ = stereo_m.fisheye_stereo_match(
+                    featsL.uv, featsL.desc, featsL.valid, featsR.uv, featsR.desc,
+                    featsR.valid, self.camera, cam2, self._t(cfg.stereo_R_rl, torch.float32),
+                    self._t(cfg.stereo_t_rl, torch.float32))
+                self._cur_depth = np.where(good.cpu().numpy(), depth.cpu().numpy(), 0.0)
+                self._cur_uright = None  # no virtual right coordinates
+            else:
+                u_r, depth, _ = stereo_m.stereo_match(
+                    featsL.uv, featsL.desc, featsL.octave, featsL.valid,
+                    featsR.uv, featsR.desc, featsR.octave, featsR.valid,
+                    cfg.bf, cfg.stereo_min_z, cfg.bf / max(cfg.stereo_min_z, 1e-6))
+                self._cur_depth = depth.cpu().numpy()
+                self._cur_uright = u_r.cpu().numpy()
+        return self._process_with_depth(featsL, ts)
 
     def process_rgbd(self, img, depth_map, ts: float, depth_factor: float = 1.0):
-        raise NotImplementedError("Tracker: RGB-D is ROADMAP slice C, "
-                                  "not yet ported")
+        """RGB-D entry (GrabImageRGBD): the registered depth map (H, W),
+        scaled by `depth_factor` to metres, read at the keypoints, and the
+        virtual right coordinate u - bf / z for the stereo rows."""
+        with timing.stage("track.extract"):
+            timing.count("dispatch.extract")
+            feats = self._extract(img)
+        if isinstance(depth_map, torch.Tensor):
+            depth_map = depth_map.to(self.device, torch.float32)
+        else:  # uint16 (TUM's PNG) and float maps alike, exactly in f32
+            depth_map = self._t(np.asarray(depth_map, np.float32))
+        u_r, depth, _ = stereo_m.depth_from_rgbd(feats.uv, feats.valid, depth_map,
+                                                 self.cfg.bf, depth_factor)
+        self._cur_depth = depth.cpu().numpy()
+        self._cur_uright = u_r.cpu().numpy()
+        return self._process_with_depth(feats, ts)
 
     def process_features(self, feats: FrameFeatures, ts: float):
         """Main entry (GrabImageMonocular). Returns the world->camera pose
@@ -282,7 +366,10 @@ class Tracker:
         if self._pre_cur is not None:
             self._pre_frames.append(self._pre_cur)
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            self._monocular_initialization(feats, ts)
+            if self._cur_depth is not None:
+                self._stereo_initialization(feats, ts)
+            else:
+                self._monocular_initialization(feats, ts)
         elif self.state in (TrackingState.OK, TrackingState.RECENTLY_LOST):
             if self._track_frame(feats, ts):
                 self.state = TrackingState.OK
@@ -310,6 +397,45 @@ class Tracker:
         if self.sample_fn is None:
             return None
         return torch.from_numpy(np.array(self.sample_fn(self.frame_id, ok.cpu().numpy())))
+
+    def _stereo_initialization(self, feats: FrameFeatures, ts: float):
+        """StereoInitialization: the first frame with enough stereo / RGB-D
+        depths becomes a keyframe at the origin, its points unprojected
+        from the depths (no two-view RANSAC)."""
+        f = _host(feats)
+        depth = self._cur_depth
+        has_d = f["valid"] & (depth > 0)
+        if int(has_d.sum()) < self.cfg.stereo_init_min_points:
+            return
+        rays = self.camera.unproject(feats.uv).cpu().numpy()  # z = 1
+        pts = rays * depth[:, None]
+        sel = np.nonzero(has_d)[0]
+        # first_kf is set below, once the keyframe has its slot
+        ids = self.map.add_points(pos=pts[sel].astype(np.float32),
+                                  desc=f["desc"][sel], first_kf=0)
+        obs = np.full(feats.capacity, -1, np.int32)
+        good = ids >= 0
+        obs[sel[good]] = ids[good]
+        k0 = self.map.add_keyframe(
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32), ts, self.frame_id,
+            f["uv"], f["octave"], f["angle"], f["desc"], f["valid"], obs,
+            uright=self._cur_uright)
+        if k0 < 0:
+            # at keyframe capacity: take the points back
+            if good.any():
+                self.map.remove_points(ids[good])
+            return
+        self.map.mp_first_kf[ids[good]] = k0
+        self.map.mp_ref_kf[ids[good]] = k0
+        self.R_cw = np.eye(3, dtype=np.float32)
+        self.t_cw = np.zeros(3, np.float32)
+        self._set_ref_kf(k0)
+        self._update_mp_stats_after_insert(ids[good])
+        self._vel_R = np.eye(3, dtype=np.float32)
+        self._vel_t = np.zeros(3, np.float32)
+        self._pre_frames = []  # the inertial chain starts at this keyframe
+        self.state = TrackingState.OK
+        self._frames_since_kf = 0
 
     def _monocular_initialization(self, feats: FrameFeatures, ts: float):
         cfg = self.cfg
@@ -490,6 +616,9 @@ class Tracker:
 
         # the retry ladder (narrow -> wide -> recently-lost wide -> local
         # refinement) with its pose GN; K1 reads the packed words as stored
+        stereo = {}
+        if self._cur_uright is not None and cfg.bf > 0:
+            stereo = dict(u_right=self._t(self._cur_uright, torch.float32), bf=cfg.bf)
         timing.count("dispatch.track_fused")
         success, res = fused_track_pose(
             mp_pos, mp_words, valid_pt, mp_normal, mp_min_d, mp_max_d,
@@ -499,7 +628,7 @@ class Tracker:
             [cfg.proj_radius, cfg.proj_radius_wide, cfg.proj_radius_wide * 2,
              cfg.local_radius],
             cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
-            device=self.device)
+            device=self.device, **stereo)
         if not success:
             # TrackReferenceKeyFrame needs the vocabulary (ROADMAP slice E);
             # without one the reference returns None here too
@@ -661,9 +790,11 @@ class Tracker:
                 f["angle"], f["desc"], f["valid"], mp_ids.copy(),
                 prev_kf=self.ref_kf, vel=self._vel_w,
                 bias=self._current_bias() if self.imu_calib is not None else None,
-                preint=pre_kf)
+                preint=pre_kf, uright=self._cur_uright)
             if k < 0:
                 return  # map at keyframe capacity; keep tracking without a KF
+            if self._cur_depth is not None and (self.cfg.bf > 0 or self.cfg.fisheye_stereo):
+                self._spawn_close_points(k, feats, f, mp_ids)
             self._update_mp_stats_after_insert(mp_ids[mp_ids >= 0])
             self._set_ref_kf(k)
             self._frames_since_kf = 0
@@ -682,6 +813,28 @@ class Tracker:
                         self._frame_bias = self.map.kf_bias[k].copy()
                     self._vel_R = np.eye(3, dtype=np.float32)
                     self._vel_t = np.zeros(3, np.float32)
+
+    def _spawn_close_points(self, k: int, feats: FrameFeatures, f: dict,
+                            mp_ids: np.ndarray):
+        """CreateNewKeyFrame on stereo / RGB-D maps: each valid feature
+        without a point whose depth is under th_depth baselines gets a new
+        point, unprojected from its depth (`mp_ids` is updated in place)."""
+        cfg = self.cfg
+        if cfg.fisheye_stereo:
+            close = cfg.baseline_m * cfg.th_depth
+        else:
+            close = cfg.bf / float(self.camera.params[0]) * cfg.th_depth
+        depth = self._cur_depth
+        sel = np.nonzero(f["valid"] & (mp_ids < 0) & (depth > 0) & (depth < close))[0]
+        if len(sel) == 0:
+            return
+        xc = self.camera.unproject(feats.uv).cpu().numpy()[sel] * depth[sel, None]
+        pw = xc @ self.R_cw + (-self.R_cw.T @ self.t_cw)
+        ids = self.map.add_points(pos=pw.astype(np.float32), desc=f["desc"][sel],
+                                  first_kf=k)
+        ok = ids >= 0
+        self.map.kf_obs_mp[k, sel[ok]] = ids[ok]
+        mp_ids[sel[ok]] = ids[ok]
 
     def _update_mp_stats_after_insert(self, ids):
         ids = np.asarray(ids)

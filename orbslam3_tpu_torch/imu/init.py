@@ -87,15 +87,17 @@ INIT_GN_ITERS = 20    # Gauss-Newton steps of the inertial-only MAP
 
 
 def initialize_imu(m: MapState, calib: ImuCalib, prior_gyro: float = 1e2,
-                   prior_acc: float = 1e10, fix_vel: bool = False, device=None):
+                   prior_acc: float = 1e10, fix_scale: bool = False,
+                   fix_vel: bool = False, device=None):
     """One rung of the ladder. Returns the `InertialInit`, or None if the
     chain is too short or the scale degenerate.
 
     On success the map is re-gauged to metric, gravity-aligned
     coordinates, the keyframe velocities and biases are written and
     `m.imu_initialized` is set (InitializeIMU -> ApplyScaledRotation ->
-    UpdateFrameIMU). The reference's `regauge=False` has no caller and is
-    not ported, nor is its `fix_scale` (stereo-inertial, slice C)."""
+    UpdateFrameIMU). `fix_scale` holds s = 1 (stereo and RGB-D maps are
+    metric already). The reference's `regauge=False` has no caller and is
+    not ported."""
     dev = device_policy.resolve(device)
     kfs, pres = chain_with_preint(m)
     if len(kfs) < MIN_CHAIN_KFS:
@@ -106,7 +108,7 @@ def initialize_imu(m: MapState, calib: ImuCalib, prior_gyro: float = 1e2,
           if m.imu_initialized else None)
     init = iopt.inertial_only_optimize(Rwb, twb, edges, prior_gyro=prior_gyro,
                                        prior_acc=prior_acc, v0=v0, n_iters=INIT_GN_ITERS,
-                                       fix_vel=fix_vel)
+                                       fix_scale=fix_scale, fix_vel=fix_vel)
     s = float(init.scale)
     if not np.isfinite(s) or s < 1e-1:
         return None  # degenerate scale: the reference aborts too

@@ -1,7 +1,10 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur elimination.
 
-Port of `orbslam3_tpu/opt/ba.py` (`BAProblem`, `bundle_adjust`), monocular
-observations. One iteration evaluates every observation's residual and
+Port of `orbslam3_tpu/opt/ba.py` (`BAProblem`, `bundle_adjust`). An
+observation with a virtual right coordinate (`u_r` >= 0, stereo or RGB-D)
+has a third residual row, (u - bf/z) - u_r, and the 3-DoF Huber delta and
+chi2 gate (EdgeStereoSE3ProjectXYZ); the others keep the 2-DoF ones. One
+iteration evaluates every observation's residual and
 Jacobians at once, accumulates the landmark blocks by segment sums, scatters
 the per-observation blocks U_o = W_o Hll^{-1/2} into a dense (6M, 3P)
 matrix Z, forms the reduced camera system S = Hpp - Z Z^T with one matmul,
@@ -27,8 +30,7 @@ from typing import NamedTuple
 import torch
 
 from orbslam3_tpu_torch.core import lie, robust
-
-HUBER_MONO = robust.CHI2_MONO ** 0.5
+from orbslam3_tpu_torch.opt.pose_gn import stereo_rows, stereo_thresholds
 
 
 class BAProblem(NamedTuple):
@@ -44,6 +46,10 @@ class BAProblem(NamedTuple):
     valid: torch.Tensor     # (O,) bool
     fixed_kf: torch.Tensor  # (M,) bool: poses held constant (gauge)
     fixed_lm: torch.Tensor  # (P,) bool
+    # stereo: the virtual right u per observation (< 0 = monocular) and
+    # bf = baseline * fx; None for a monocular problem (2 residual rows)
+    u_r: torch.Tensor | None = None  # (O,)
+    bf: torch.Tensor | None = None   # ()
 
 
 def _xc(prob: BAProblem) -> torch.Tensor:
@@ -52,19 +58,32 @@ def _xc(prob: BAProblem) -> torch.Tensor:
 
 
 def _eval_residuals(prob: BAProblem, camera):
-    """Residuals (O,2), pose Jacobians (O,2,6), landmark Jacobians (O,2,3)
-    and chi2 (O,)."""
+    """Residuals (O,2|3), pose Jacobians (O,2|3,6), landmark Jacobians
+    (O,2|3,3) and chi2 (O,)."""
     xc = _xc(prob)
-    res = camera.project(xc) - prob.uv
+    pred = camera.project(xc)
+    res = pred - prob.uv
     Jproj = camera.project_jac(xc)
+    if prob.u_r is not None:
+        res, Jproj = stereo_rows(pred, xc, Jproj, res, prob.u_r, prob.bf)
     Jp = torch.cat([Jproj, -Jproj @ lie.hat(xc)], dim=-1)
     Jl = Jproj @ prob.R[prob.kf_idx]  # dXc/dXw = R
     chi2 = torch.sum(res * res, dim=-1) * prob.info
     return res, Jp, Jl, chi2
 
 
+def _huber_delta(prob: BAProblem):
+    """Per-observation Huber threshold: sqrt(5.991) mono, sqrt(7.815)
+    stereo (the reference's deltaMono / deltaStereo)."""
+    return stereo_thresholds(prob.u_r)[0]
+
+
+def _chi2_gate(prob: BAProblem):
+    return stereo_thresholds(prob.u_r)[1]
+
+
 def _weights(prob: BAProblem, chi2, behind):
-    w = robust.huber_weight(chi2, HUBER_MONO) * prob.info
+    w = robust.huber_weight(chi2, _huber_delta(prob)) * prob.info
     return torch.where(prob.valid & ~behind, w, 0.0)
 
 
@@ -185,7 +204,7 @@ def ba_solve_iteration(prob: BAProblem, camera, lm_lambda, segs: Segments):
     dRs, dts = lie.se3_exp(dp)
     R_new = lie.so3_normalize(dRs @ prob.R)
     t_new = torch.einsum("mij,mj->mi", dRs, prob.t) + dts
-    cost = torch.sum(robust.huber_rho(chi2, HUBER_MONO) * (w > 0))
+    cost = torch.sum(robust.huber_rho(chi2, _huber_delta(prob)) * (w > 0))
     return prob._replace(R=R_new, t=t_new, points=prob.points + dl), cost
 
 
@@ -197,7 +216,8 @@ def _lm_loop(prob: BAProblem, camera, n_iters: int, lambda0: float, segs: Segmen
         prob_new, cost = ba_solve_iteration(prob, camera, lam, segs)
         _, _, _, chi2_new = _eval_residuals(prob_new, camera)
         w_new = _weights(prob_new, chi2_new, torch.zeros_like(chi2_new, dtype=torch.bool))
-        cost_new = torch.sum(robust.huber_rho(chi2_new, HUBER_MONO) * (w_new > 0))
+        cost_new = torch.sum(robust.huber_rho(chi2_new, _huber_delta(prob_new))
+                             * (w_new > 0))
         # a diverged step gives NaN chi2, which would zero every weight and
         # let cost_new == 0 win the accept test: count it as +inf
         diverged = ~torch.isfinite(torch.where(prob_new.valid, chi2_new, 0.0)).all()
@@ -214,7 +234,8 @@ def _lm_loop(prob: BAProblem, camera, n_iters: int, lambda0: float, segs: Segmen
 def bundle_adjust(prob: BAProblem, camera, n_iters: int = 10, lambda0: float = 1e-4):
     """Fixed-iteration two-phase LM bundle adjustment (reference
     `LocalBundleAdjustment` semantics): a Huber-weighted phase, then hard
-    rejection of observations with chi2 > 5.991 or behind the camera, then
+    rejection of observations over their chi2 gate (5.991 mono, 7.815
+    stereo) or behind the camera, then
     a second phase on the survivors.
 
     Returns (prob, costs, outlier_mask): the mask marks observations
@@ -223,7 +244,7 @@ def bundle_adjust(prob: BAProblem, camera, n_iters: int = 10, lambda0: float = 1
     segs = segments(prob)
     prob, costs1 = _lm_loop(prob, camera, n1, lambda0, segs)
     _, _, _, chi2 = _eval_residuals(prob, camera)
-    outlier = prob.valid & ((chi2 > robust.CHI2_MONO) | (_xc(prob)[:, 2] <= 0.0))
+    outlier = prob.valid & ((chi2 > _chi2_gate(prob)) | (_xc(prob)[:, 2] <= 0.0))
     prob = prob._replace(valid=prob.valid & ~outlier)
     prob, costs2 = _lm_loop(prob, camera, n_iters - n1, lambda0, segs)
     return prob, torch.cat([costs1, costs2]), outlier

@@ -130,14 +130,16 @@ class InertialInit(NamedTuple):
 
 def inertial_only_optimize(Rwb, p, edges: InertialEdges, prior_gyro=1e2,
                            prior_acc=1e10, v0=None, n_iters: int = 20,
-                           fix_vel: bool = False) -> InertialInit:
+                           fix_scale: bool = False, fix_vel: bool = False) -> InertialInit:
     """Inertial-only MAP (`InertialOptimization`): the poses fixed, solve
     {Rwg (2), log s (1), bias (6), v (3M)} by damped Gauss-Newton on the
     whitened residuals with zero-mean bias priors. The gravity seed is
     -sum_i Rwb_i dV_i (`LocalMapping::InitializeIMU`); velocities are
     seeded by position differences along the chain unless `v0` is given.
-    `fix_vel` (scale refinement) moves only scale and gravity. The
-    reference's `fix_scale` (stereo-inertial, slice C) is not ported."""
+    `fix_vel` (scale refinement) moves only scale and gravity. With
+    `fix_scale` (stereo and RGB-D maps, already metric) s is 1 and log s
+    stays in the vector with a zero Jacobian column, as in the reference:
+    the damping's 1e-8 floor keeps its diagonal non-zero and its step 0."""
     M = Rwb.shape[0]
     dtype, dev = p.dtype, p.device
     valid = edges.valid.to(dtype)
@@ -163,7 +165,8 @@ def inertial_only_optimize(Rwb, p, edges: InertialEdges, prior_gyro=1e2,
 
     def unpack(x):
         Rwg = Rwg0 @ lie.so3_exp(torch.cat([x[:2], zero1]))
-        return Rwg, torch.exp(x[2]), x[3:9], x[9:].reshape(M, 3)
+        s = torch.ones_like(x[2]) if fix_scale else torch.exp(x[2])
+        return Rwg, s, x[3:9], x[9:].reshape(M, 3)
 
     sqrt_pg = torch.sqrt(torch.as_tensor(prior_gyro, dtype=dtype, device=dev))
     sqrt_pa = torch.sqrt(torch.as_tensor(prior_acc, dtype=dtype, device=dev))

@@ -1,9 +1,12 @@
 """Pose-only optimization: fixed-iteration robust Gauss-Newton on SE(3).
 
 Port of the JAX package's `opt/pose_gn.py` (`reprojection_residuals`,
-`optimize_pose`, `optimize_pose_batch`), monocular observations: 4 rounds
-of 10 damped GN steps with Huber weights, re-normalising R and
-re-classifying outliers by chi2 > 5.991 after each round. Left-multiplicative perturbation,
+`optimize_pose`, `optimize_pose_batch`): 4 rounds of 10 damped GN steps
+with Huber weights, re-normalising R and re-classifying outliers by chi2
+after each round. Observations with a virtual right coordinate (stereo or
+RGB-D) add a third residual row, (u - bf/z) - u_r, and take the 3-DoF
+Huber delta and gate (sqrt(7.815) / 7.815) where the others take the
+2-DoF ones (sqrt(5.991) / 5.991). Left-multiplicative perturbation,
 T <- exp(xi) * T with xi = (rho, phi), so dXc/dxi = [I | -hat(Xc)].
 """
 
@@ -18,12 +21,41 @@ CHI2_MONO = robust.CHI2_MONO
 HUBER_MONO = CHI2_MONO ** 0.5
 
 
-def reprojection_residuals(R, t, points, uv, camera):
-    """Residuals (N,2), Jacobians (N,2,6) wrt left-perturbation, and the
-    camera-frame points (N,3)."""
+def stereo_rows(pred, xc, Jproj, res, u_r, bf):
+    """Append the stereo row (u - bf/z) - u_r to residuals (..., 2) and
+    projection Jacobians (..., 2, 3), zero where u_r < 0 (a monocular
+    observation; EdgeStereoSE3ProjectXYZ)."""
+    has_st = (u_r >= 0.0)[..., None]
+    z = torch.clamp(xc[..., 2], min=1e-6)
+    r3 = (pred[..., 0] - bf / z) - u_r
+    res = torch.cat([res, torch.where(has_st, r3[..., None], 0.0)], dim=-1)
+    zero = torch.zeros_like(z)
+    # d(u - bf/z)/dxc = du/dxc + [0, 0, bf/z^2]
+    Jr3 = Jproj[..., 0, :] + torch.stack([zero, zero, bf / (z * z)], dim=-1)
+    Jproj = torch.cat([Jproj, torch.where(has_st, Jr3, 0.0)[..., None, :]], dim=-2)
+    return res, Jproj
+
+
+def stereo_thresholds(u_r):
+    """(Huber delta, chi2 gate) per observation: the 3-DoF ones where
+    u_r >= 0, else the 2-DoF ones; scalars without `u_r`."""
+    if u_r is None:
+        return HUBER_MONO, CHI2_MONO
+    st = u_r >= 0.0
+    return (torch.where(st, robust.CHI2_STEREO ** 0.5, HUBER_MONO),
+            torch.where(st, robust.CHI2_STEREO, CHI2_MONO))
+
+
+def reprojection_residuals(R, t, points, uv, camera, u_r=None, bf=None):
+    """Residuals (N,2|3), Jacobians (N,2|3,6) wrt left-perturbation, and
+    the camera-frame points (N,3). With `u_r` (N,) and `bf`, the stereo
+    row is appended (zero where u_r < 0)."""
     xc = lie.se3_apply(R, t, points)
-    res = camera.project(xc) - uv
+    pred = camera.project(xc)
+    res = pred - uv
     Jproj = camera.project_jac(xc)  # (N,2,3)
+    if u_r is not None:
+        res, Jproj = stereo_rows(pred, xc, Jproj, res, u_r, bf)
     Jpose = torch.cat([Jproj, -Jproj @ lie.hat(xc)], dim=-1)
     return res, Jpose, xc
 
@@ -40,20 +72,26 @@ def optimize_pose(
     n_iters: int = 10,
     damping: float = 1e-3,
     device=None,
+    u_r: torch.Tensor | None = None,  # (N,) virtual right u; < 0 = monocular
+    bf=None,                          # baseline * fx, with `u_r`
 ):
     """Returns (R, t, inliers, n_inliers). After each round, observations
-    with chi2 > 5.991 are excluded and may re-enter later, as the
+    over their chi2 gate are excluded and may re-enter later, as the
     reference's g2o edge levels allow."""
     dev = device_policy.resolve(device)
     R, t, points, uv, info, valid = (x.to(dev) for x in (R0, t0, points, uv,
                                                          info, valid))
     camera = camera.to(dev)
+    if u_r is not None:
+        u_r = u_r.to(dev)
+        bf = torch.as_tensor(bf, dtype=torch.float32, device=dev)
+    delta, gate = stereo_thresholds(u_r)
     inlier = valid.to(R.dtype)
     for _ in range(n_rounds):
         for _ in range(n_iters):
-            res, J, _ = reprojection_residuals(R, t, points, uv, camera)
+            res, J, _ = reprojection_residuals(R, t, points, uv, camera, u_r, bf)
             chi2 = torch.sum(res * res, dim=-1) * info
-            w = robust.huber_weight(chi2, HUBER_MONO) * info * inlier
+            w = robust.huber_weight(chi2, delta) * info * inlier
             JW = J * w[:, None, None]
             H = torch.einsum("nia,nib->ab", JW, J)
             b = torch.einsum("nia,ni->a", JW, res)
@@ -66,9 +104,9 @@ def optimize_pose(
             R, t = dR @ R, dR @ t + dt
         # re-orthonormalise: 40 f32 compositions leave shear in R otherwise
         R = lie.so3_normalize(R)
-        res, _, xc = reprojection_residuals(R, t, points, uv, camera)
+        res, _, xc = reprojection_residuals(R, t, points, uv, camera, u_r, bf)
         chi2 = torch.sum(res * res, dim=-1) * info
-        inlier = (valid.to(R.dtype) * (chi2 < CHI2_MONO).to(R.dtype)
+        inlier = (valid.to(R.dtype) * (chi2 < gate).to(R.dtype)
                   * (xc[:, 2] > 0).to(R.dtype))
     return R, t, inlier > 0, torch.sum(inlier).to(torch.int32)
 

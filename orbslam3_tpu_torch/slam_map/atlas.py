@@ -131,7 +131,10 @@ class Atlas:
                 src.kf_octave[k], src.kf_angle[k], src.kf_desc[k],
                 src.kf_feat_valid[k], remapped, prev_kf=prev,
                 vel=s * (Rm @ src.kf_vel[k]), bias=src.kf_bias[k],
-                preint=src.kf_pre.get(int(k)))
+                preint=src.kf_pre.get(int(k)),
+                # stereo maps are metric (s = 1), so u - bf/z still holds;
+                # the reference drops them here
+                uright=src.kf_uright[k])
             if nk < 0:
                 continue  # at the hard ceiling (loud drop event already fired)
             kf_map[int(k)] = nk

@@ -18,8 +18,8 @@ views per call (matching, BA), and the covisibility product runs on the
 map's device. Lifecycle (SetBadFlag-style erasure) is tombstoning via the
 valid masks. The inertial state rides along: per-keyframe velocity, bias
 and the preintegration to the previous keyframe, the IMU-init flags, and
-the re-gauge of the whole map at IMU initialization. The stereo
-bookkeeping (right image coordinates) comes with ROADMAP slice C.
+the re-gauge of the whole map at IMU initialization, and so do the
+stereo / RGB-D features' right image coordinates (`kf_uright`).
 """
 
 from __future__ import annotations
@@ -87,6 +87,9 @@ class MapState:
         self.kf_desc = np.zeros((M, N, 8), np.uint32)
         self.kf_feat_valid = np.zeros((M, N), bool)
         self.kf_obs_mp = np.full((M, N), -1, np.int32)
+        # stereo / RGB-D: the virtual right-image u of each feature, -1 for
+        # a monocular observation (Frame::mvuRight carried onto the KeyFrame)
+        self.kf_uright = np.full((M, N), -1.0, np.float32)
         self.kf_prev = np.full(M, -1, np.int32)  # temporal chain (mPrevKF)
         # IMU state per keyframe (used once inertial is initialized)
         self.kf_vel = np.zeros((M, 3), np.float32)
@@ -170,7 +173,7 @@ class MapState:
                  ('kf_ts', 0.0), ('kf_frame_id', -1), ('kf_uv', 0.0),
                  ('kf_octave', 0), ('kf_angle', 0.0), ('kf_desc', 0),
                  ('kf_feat_valid', False), ('kf_obs_mp', -1),
-                 ('kf_vel', 0.0), ('kf_bias', 0.0),
+                 ('kf_uright', -1.0), ('kf_vel', 0.0), ('kf_bias', 0.0),
                  ('kf_prev', -1), ('kf_uid', -1)], kf_old, kf_new)
             self._event('grow_keyframes', old=kf_old, new=kf_new)
         if mp_new > mp_old:
@@ -212,7 +215,7 @@ class MapState:
 
     def add_keyframe(self, R, t, ts, frame_id, uv, octave, angle, desc,
                      feat_valid, obs_mp, prev_kf: int = -1, vel=None, bias=None,
-                     preint=None) -> int:
+                     preint=None, uright=None) -> int:
         free = np.nonzero(~self.kf_valid)[0]
         if len(free) == 0:
             # tier bump (x2) instead of a silent skip; only the hard
@@ -234,6 +237,7 @@ class MapState:
         self.kf_desc[k] = desc
         self.kf_feat_valid[k] = feat_valid
         self.kf_obs_mp[k] = obs_mp
+        self.kf_uright[k] = uright if uright is not None else -1.0
         self.kf_prev[k] = prev_kf
         if vel is not None:
             self.kf_vel[k] = vel

@@ -273,3 +273,155 @@ def test_optimize_pose_inertial_on_the_card(cuda):
     for a, b in zip(runs[0][0], runs[1][0]):
         assert torch.equal(a, b)
     assert torch.equal(runs[0][3].H, runs[1][3].H)
+
+
+def _stereo_keypoints(n: int, m: int, seed: int):
+    """Left and right keypoints of a rectified pair at full width (752x480):
+    two thirds of the left ones matched at depths 1-12 m (bf 40) with row
+    jitter, their descriptors a few bits apart, distractors, ties."""
+    rng = np.random.default_rng(seed)
+    uvL = np.stack([rng.uniform(60, 700, n), rng.uniform(0, 480, n)], -1)
+    uvR = np.stack([rng.uniform(0, 740, m), rng.uniform(0, 480, m)], -1)
+    octL = rng.integers(0, 8, n).astype(np.int32)
+    octR = rng.integers(0, 8, m).astype(np.int32)
+    k = min(n, m) * 2 // 3
+    uvR[:k, 0] = uvL[:k, 0] - 40.0 / rng.uniform(1.0, 12.0, k)
+    uvR[:k, 1] = uvL[:k, 1] + rng.normal(0, 0.5, k)
+    octR[:k] = np.clip(octL[:k] + rng.integers(-1, 2, k), 0, 7)
+    wL = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    wR = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
+    wR[:k] = wL[:k] ^ (rng.integers(0, 2, (k, 8)).astype(np.uint32) << 7)
+    wR[k:k + 50] = wR[:50]  # ties
+    return (torch.from_numpy(uvL.astype(np.float32)), _words_t(wL), torch.from_numpy(octL),
+            torch.from_numpy(rng.random(n) < 0.97), torch.from_numpy(uvR.astype(np.float32)),
+            _words_t(wR), torch.from_numpy(octR), torch.from_numpy(rng.random(m) < 0.97))
+
+
+@pytest.mark.cuda
+def test_stereo_match_on_the_card_equals_the_cpu(cuda):
+    """`stereo_match` at the EuRoC operating point (1200 x 1200) on the
+    card: the row-band mask, K1 under the `stereo` policy and the depths
+    equal the CPU's (its plain K1) exactly; one launch."""
+    from orbslam3_tpu_torch.vision import stereo
+    args = _stereo_keypoints(1200, 1200, 3)
+    ref = stereo.stereo_match(*args, 36.588, 0.1, 365.88)
+    before = _build.launches[f"{hamming.KERNEL}[stereo]"]
+    got = stereo.stereo_match(*(x.to(cuda) for x in args), 36.588, 0.1, 365.88)
+    torch.cuda.synchronize()
+    assert _build.launches[f"{hamming.KERNEL}[stereo]"] == before + 1
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+    assert int(ref[2].sum()) > 500
+    mask = stereo.stereo_mask(*(args[i].to(cuda) for i in (0, 2, 3, 4, 6, 7)),
+                              torch.tensor(365.88, device=cuda))
+    assert torch.equal(mask.cpu(), stereo.stereo_mask(*(args[i] for i in (0, 2, 3, 4, 6, 7)),
+                                                      torch.tensor(365.88)))
+
+
+@pytest.mark.cuda
+def test_top2_kernel_at_the_fisheye_all_valid_mask(cuda):
+    """K1 at a fisheye pair's dense mask (every valid left x right pair,
+    1000 x 1000, TH_LOW ratio 0.8) against its plain version, and the
+    match's indices on the card equal the CPU's."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.vision import stereo
+    rng = np.random.default_rng(5)
+    n = 1000
+    wl = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    perm = rng.permutation(n)
+    wr = wl[perm] ^ (rng.integers(0, 2, (n, 8)).astype(np.uint32) << 3)
+    vl, vr = rng.random(n) < 0.95, rng.random(n) < 0.95
+    a, b = _words_t(wl).to(cuda), _words_t(wr).to(cuda)
+    mask = (torch.from_numpy(vl)[:, None] & torch.from_numpy(vr)[None, :]).contiguous().to(cuda)
+    got = hamming.masked_top2(a, b, mask)
+    ref = hamming.masked_top2_reference(a, b, mask)
+    for r, g in zip(ref, got):
+        assert torch.equal(g, r)
+    cam = Camera.kb8(190.98, 190.97, 254.93, 256.90, 0.0035, 0.0007, -0.0021, 0.0002,
+                     width=512, height=512, device="cpu")
+    uvl = torch.from_numpy(rng.uniform(20, 490, (n, 2)).astype(np.float32))
+    uvr = uvl[torch.from_numpy(perm)] - torch.tensor([6.0, 0.0])
+    args = (uvl, _words_t(wl), torch.from_numpy(vl), uvr, _words_t(wr), torch.from_numpy(vr))
+    R_rl, t_rl = torch.eye(3), torch.tensor([-0.101, 0.0, 0.0])
+    ref_m = stereo.fisheye_stereo_match(*args, cam, cam, R_rl, t_rl)
+    got_m = stereo.fisheye_stereo_match(*(x.to(cuda) for x in args), cam.to(cuda),
+                                        cam.to(cuda), R_rl.to(cuda), t_rl.to(cuda))
+    assert torch.equal(got_m[2].cpu(), ref_m[2])
+
+
+@pytest.mark.cuda
+def test_remap_bilinear_on_the_card(cuda):
+    """The rectifying remap of a raw 752x480 pair on the card within 4 ulps
+    of the CPU's (the card contracts multiply-adds)."""
+    from orbslam3_tpu_torch.vision.rectify import RectifyMaps
+    K1 = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1.0]])
+    K2 = np.array([[457.587, 0, 379.999], [0, 456.134, 255.238], [0, 0, 1.0]])
+    d1 = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
+    d2 = (-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05)
+    rect = RectifyMaps(K1, d1, K2, d2, (752, 480), np.eye(3), np.array([-0.11, 0.0, 0.0]),
+                       device="cpu")
+    rng = np.random.default_rng(2)
+    left = rng.integers(0, 256, (480, 752)).astype(np.uint8)
+    right = rng.integers(0, 256, (480, 752)).astype(np.uint8)
+    on_card = rect.to(cuda)
+    assert on_card.map_l.device.type == "cuda"
+    for g, r in zip(on_card(left, right), rect(left, right)):
+        np.testing.assert_array_max_ulp(g.cpu().numpy(), r.numpy(), maxulp=4)
+
+
+def _stereo_ba_problem():
+    """A local BA of five keyframes (two fixed), 160 landmarks each seen by
+    at least three of them with 0.5 px noise, 60% stereo rows (bf 40),
+    gross outliers on landmarks seen four or more times."""
+    from orbslam3_tpu_torch.core import lie
+    from orbslam3_tpu_torch.opt.ba import BAProblem
+    rng = np.random.default_rng(7)
+    fx, fy, cx, cy = 458.0, 457.0, 367.0, 248.0
+    n_kf, n_pts = 5, 160
+    pts = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                    rng.uniform(2, 8, n_pts)], -1)
+    Rs = lie.so3_exp(torch.tensor([[0.01 * k, 0.03 * k + 1e-3, 0.0] for k in range(n_kf)])).numpy()
+    ts = np.array([[-0.2 * k, 0.02 * k, 0.0] for k in range(n_kf)])
+    seen = rng.random((n_kf, n_pts)) < 0.85
+    seen[:3, seen.sum(0) < 3] = True
+    kk, jj = np.nonzero(seen)
+    xc = np.einsum("oij,oj->oi", Rs[kk], pts[jj]) + ts[kk]
+    uv = np.stack([fx * xc[:, 0] / xc[:, 2] + cx, fy * xc[:, 1] / xc[:, 2] + cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    u_r = np.where(rng.random(len(kk)) < 0.6, uv[:, 0] - 40.0 / xc[:, 2], -1.0)
+    bad = rng.choice(np.nonzero(seen.sum(0)[jj] >= 4)[0], 16, replace=False)
+    uv[bad[:8]] += rng.uniform(15, 30, (8, 2))
+    u_r[bad[8:]] = np.where(u_r[bad[8:]] >= 0, u_r[bad[8:]] + 20.0, -1.0)
+    R0, t0 = Rs.copy(), ts.copy()
+    R0[2:] = lie.so3_exp(torch.tensor([0.004, -0.003, 0.002])).numpy() @ Rs[2:]
+    t0[2:] += rng.normal(0, 0.02, (n_kf - 2, 3))
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
+    O = len(kk)
+    return BAProblem(
+        R=f32(R0), t=f32(t0), points=f32(pts + rng.normal(0, 0.05, pts.shape)),
+        kf_idx=torch.from_numpy(kk), lm_idx=torch.from_numpy(jj), uv=f32(uv),
+        info=f32(1.0 / 1.2 ** (2.0 * rng.integers(0, 3, O))),
+        valid=torch.ones(O, dtype=torch.bool), fixed_kf=torch.arange(n_kf) < 2,
+        fixed_lm=torch.zeros(n_pts, dtype=torch.bool), u_r=f32(u_r), bf=f32(40.0))
+
+
+@pytest.mark.cuda
+def test_stereo_bundle_adjust_on_the_card(cuda):
+    """BA with stereo rows on the card against the CPU (poses 1e-4, points
+    1e-3 m, the gated outliers exact), and two runs on the card bit for
+    bit."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.opt.ba import bundle_adjust
+    prob = _stereo_ba_problem()
+    cam = Camera.pinhole(458.0, 457.0, 367.0, 248.0, width=752, height=480, device="cpu")
+    ref, ref_costs, ref_out = bundle_adjust(prob, cam, n_iters=8)
+    runs = [bundle_adjust(_to(prob, cuda), cam.to(cuda), n_iters=8) for _ in range(2)]
+    got, costs, out = runs[0]
+    assert torch.equal(out.cpu(), ref_out) and int(ref_out.sum()) >= 12
+    assert (got.R.cpu() - ref.R).abs().max() <= 1e-4
+    assert (got.t.cpu() - ref.t).abs().max() <= 1e-4
+    assert (got.points.cpu() - ref.points).abs().max() <= 1e-3
+    assert torch.allclose(costs.cpu(), ref_costs, rtol=1e-3)
+    (p0, c0, o0), (p1, c1, o1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(c0, c1) and torch.equal(o0, o1)

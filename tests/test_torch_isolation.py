@@ -20,6 +20,8 @@ SLICE_B = ("engine.system", "engine.tracking", "engine.local_mapping", "opt.ba",
            "utils.synth", "datasets.render", "evaluation", "convert")
 # the modules of the mono-inertial slice
 SLICE_D = ("imu.preintegration", "imu.init", "opt.inertial", "opt.pose_inertial")
+# the modules of the stereo / RGB-D slice
+SLICE_C = ("vision.stereo", "vision.rectify", "config")
 
 _CHILD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -59,8 +61,8 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 41  # every module of slices A, B and D
-    assert {f"orbslam3_tpu_torch.{m}" for m in SLICE_B + SLICE_D} <= imported
+    assert len(imported) >= 43  # every module of slices A, B, C and D
+    assert {f"orbslam3_tpu_torch.{m}" for m in SLICE_B + SLICE_C + SLICE_D} <= imported
 
 
 def test_no_jax_import_in_sources():

@@ -108,33 +108,48 @@ def test_timing_stages_and_counts():
 CAM = Camera.pinhole(229.3, 228.6, 183.6, 124.2, width=376, height=240, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["vocab", "atlas", "stereo", "imu", "async",
-                                  "track_stereo", "track_imu", "localization",
-                                  "tracker_bf", "tracker_rectify", "track_features_imu"])
+# what each case asks for, and the slice that still owns it
+UNPORTED = {"vocab": "E", "atlas": "F", "stereo": "E", "imu": "F", "async": "B",
+            "track_stereo": "E", "track_imu": "E", "localization": "E", "tracker_bf": "E",
+            "tracker_rectify": "F", "track_features_imu": "E"}
+
+
+@pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_parts_raise(what):
+    """What is not ported raises NotImplementedError naming its slice. The
+    stereo, RGB-D and IMU cases check what still raises on those sensors
+    (loop closing, relocalization, loading an atlas): their tracking runs
+    (tests/test_torch_stereo_slam.py, tests/test_torch_vi_slam.py)."""
+    from orbslam3_tpu_torch.engine.tracking import Tracker
+    from orbslam3_tpu_torch.imu.preintegration import ImuCalib
+    from orbslam3_tpu_torch.slam_map.map_state import MapState
+    from orbslam3_tpu_torch.vision.rectify import RectifyMaps
     cfg = SystemConfig()
     kw = {}
-    if what == "vocab":
-        kw["vocab"] = object()
-    elif what == "atlas":
+    if what in ("vocab", "stereo", "track_imu"):
+        kw["vocab"] = object()  # loop closing and relocalization
+    if what in ("atlas", "imu", "tracker_rectify"):
         kw["load_atlas_from"] = "atlas.npz"
-    elif what == "stereo":
-        cfg.sensor = Sensor.STEREO
-    elif what == "imu":
-        cfg.sensor = Sensor.IMU_STEREO  # mono-inertial runs; stereo-inertial is slice C
+    if what in ("stereo", "track_stereo"):
+        cfg.sensor, cfg.tracker = Sensor.STEREO, TrackerConfig(bf=40.0)
+    elif what in ("imu", "track_imu"):
+        cfg.sensor = Sensor.IMU_STEREO if what == "imu" else Sensor.IMU_RGBD
+        cfg.imu_calib, cfg.tracker = ImuCalib.create(), TrackerConfig(bf=40.0)
     elif what == "async":
         cfg.async_mapping = True
-    elif what == "tracker_bf":
-        cfg.tracker = TrackerConfig(bf=40.0)
     elif what == "tracker_rectify":
-        cfg.tracker = TrackerConfig(rectify=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+        K = np.array([[229.3, 0, 183.6], [0, 228.6, 124.2], [0, 0, 1.0]])
+        cfg.sensor = Sensor.STEREO
+        cfg.tracker = TrackerConfig(bf=25.0, rectify=RectifyMaps(
+            K, (-0.28, 0.07, 0, 0), K, (-0.28, 0.07, 0, 0), (376, 240), np.eye(3),
+            np.array([-0.11, 0.0, 0.0]), device="cpu"))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP slice {UNPORTED[what]}, not yet ported"):
+        if what == "tracker_bf":  # a stereo lane asked to relocalize
+            Tracker(CAM, MapState(MapConfig(), device="cpu"), TrackerConfig(bf=40.0),
+                    relocalizer=lambda feats: None, device="cpu")
         slam = Slam(CAM, cfg, device="cpu", **kw)
-        if what == "track_stereo":
-            slam.track_stereo(None, None, 0.0)
-        elif what == "track_imu":
-            slam.track_rgbd(np.zeros((240, 376)), np.zeros((240, 376)), 0.0, imu=[])
-        elif what == "localization":
+        if what in ("localization", "track_stereo"):
             slam.activate_localization_mode()
         elif what == "track_features_imu":
             merge_inertial_ba(slam.atlas.active, None, CAM, 0, 1)

@@ -13,6 +13,18 @@ import torch
 import torch.nn.functional as F
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch CPU thread, then restore the
+    count. The suite runs several workers on one machine; torch's default
+    of a thread per core in each worker oversubscribes it several times
+    over. Used autouse by the stereo slice's test modules."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
