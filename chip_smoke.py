@@ -35,14 +35,26 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   `Settings`, is held to the JAX package's run on the same inputs
   (init frame, tracked share, metric ATE; the IMU ladder's stage), counts
   K1's launches under the `stereo` policy (once a frame) and K2's (twice
-  a frame on a pair), and is rerun through the plain versions.
+  a frame on a pair), and is rerun through the plain versions;
+- mono SLAM with the shipped vocabulary (`Slam(vocab=...)`, loop closing
+  on, global BA inline) over four rendered sessions (`loop_sequences`):
+  an orbit past 2 pi whose closing views return to the opening ones (a
+  loop must fire at the JAX package's keyframes), `change_dataset()` and
+  a second session that re-observes the opening arc (a merge at the JAX
+  package's frame), `add_client(1)` on the merged map (its first frame
+  relocalizes, every frame tracks within 2 cm / 1 deg after the map's
+  Sim3 alignment), and localization mode (no keyframe). It counts K1
+  under the `loop`, `fuse` (in the correction) and `reloc` policies,
+  prints the loop closer's stages, and is rerun through the plain
+  versions, which must agree on the events and the map.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
 timings phase times both kernels by replaying a captured CUDA graph (so
 their device time is not hidden behind host launch overhead) at the inputs
 the SLAM runs handed them: K1 at one captured mask of each matcher policy
-(tracker, init, triangulation, fuse; the stereo run's row band) and at one
+(tracker, init, triangulation, fuse; the stereo run's row band; the
+vocabulary run's loop and reloc masks and one real bow mask) and at one
 full-size fisheye pair's all-valid mask, each held exactly against the
 plain version, beside its library call and its byte bound; K1 also under four
 masks at the tracker's shape and at narrow widths, and the launch floor (a
@@ -71,17 +83,19 @@ from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.config import Settings
 from orbslam3_tpu_torch.datasets.render import (BoxScene, imu_batches, orbit_sequence,
-                                                orbit_stereo_sequence, rgbd_sequence,
+                                                orbit_stereo_sequence, orbit_views, rgbd_sequence,
                                                 stereo_extrinsics, vi_sequence)
 from orbslam3_tpu_torch.engine import local_mapping
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapperConfig
+from orbslam3_tpu_torch.engine.loop_closing import LoopCloser
 from orbslam3_tpu_torch.engine.system import Sensor, Slam, SystemConfig
 from orbslam3_tpu_torch.engine.track_program import fused_track_pose
 from orbslam3_tpu_torch.engine.tracking import TrackerConfig
-from orbslam3_tpu_torch.evaluation import ate_rmse, vi_metrics
+from orbslam3_tpu_torch.evaluation import aligned_pose_errors, ate_rmse, vi_metrics
 from orbslam3_tpu_torch.imu.preintegration import ImuCalib
 from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
+from orbslam3_tpu_torch.place.vocab import load_default_vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.utils.synth import orbit_trajectory
@@ -289,6 +303,46 @@ RGBD_REFERENCE = dict(ate_metric=0.017006)
 STEREO_VI_REFERENCE = dict(iba_stage=2, ate_metric=0.024705, gravity_tilt_deg=2.460)
 DEPTH_ATE_MARGIN = 3.0
 DEPTH_POLICIES = ("tracker", "triangulation", "fuse")  # no two-view init
+
+# Mono SLAM with a vocabulary (`orbslam3_tpu/assets/vocab_100k.npz`, read by
+# path): a drone or headset that comes back to where it started, then more
+# phones streaming into the shared map. In BoxScene.default(seed=7), at the
+# mono phase's operating point, loop closing on with global BA inline:
+# (a) one orbit of `orbit_sequence`'s circle (2 m around (4, 2, 9)) over
+#     LOOP_ARC rad, LOOP_FRAMES frames (~0.05 rad a frame), so the closing
+#     views return to the opening ones: a loop must fire;
+# (b) `change_dataset()`, then MERGE_FRAMES frames at MERGE_RADIUS m with the
+#     arc run backwards from MERGE_START into the opening arc: a merge;
+# (c) `add_client(1)` fed RELOC_ANGLES (new poses on the opening arc): its
+#     first frame relocalizes; then localization mode, and client 0 tracks
+#     LOCALIZE_FRAMES more frames of its backwards arc without a keyframe.
+# Timestamps run on across the sessions, so each one names its view.
+LOOP_ARC = 2 * np.pi + 0.6
+LOOP_FRAMES = 139
+MERGE_RADIUS = 2.3
+MERGE_FRAMES = 40
+MERGE_START = 1.95            # rad past the opening view, run backwards
+MERGE_STEP = -0.05
+RELOC_ANGLES = tuple(0.225 + 0.05 * j for j in range(5))  # past the opening view
+LOCALIZE_FRAMES = 5
+SESSION_GAP_S = 1.0
+# The JAX package on the same images and settings (CPU, 2065 s):
+#     python scripts/port_loop_reference.py
+# initialized at frame 2 and tracked every later frame; the loop fired at
+# frame 119, keyframe uid 117 matched to uid 6 (frame 8), scale 0.986;
+# 66 keyframes, 6232 points, Sim3-aligned ATE 0.011737 m; the merge fired
+# at merge-session frame 15 (uid 142 matched to uid 23, frame 25), the
+# merged map 66 + 12 keyframes; client 1 relocalized on its first frame and
+# tracked 5/5 with centre errors 0.31-1.20 cm and 0.035-0.064 deg after the
+# merged map's Sim3 alignment; localization mode tracked 5/5, no keyframe.
+LOOP_REFERENCE = dict(ate=0.011737, loop_kf_uid=117, loop_matched_uid=6, merge_frame=15,
+                      reloc_centre_err_m=0.01205, reloc_rot_err_deg=0.064)
+LOOP_UID_TOL = 3            # keyframes: the loop's and merge's keyframes
+MERGE_FRAME_TOL = 3         # frames of the merge session
+OPENING_FRAMES = 20         # loop-session frames of the opening arc (~1 rad)
+LOOP_ATE_MARGIN = 3.0
+RELOC_TOL = (0.02, 1.0)     # m, deg: client 1 after the map's Sim3 alignment
+VOCAB_POLICIES = ("tracker", "init", "triangulation", "fuse", "loop", "reloc")
 # A fisheye pair for K1's all-valid mask: TUM-VI's KB8 cameras (cam0/cam1
 # of its calibration) at their 512x512 and 1000 features, a 0.101 m
 # baseline, one frame of the mono phase's orbit.
@@ -607,6 +661,298 @@ def trajectory_ate(poses, R_gt, t_gt, stamps) -> float:
     est = np.asarray([p[2] for p in poses], np.float64)
     gt = np.asarray([-R_gt[i].T @ t_gt[i] for i in idx], np.float64)
     return ate_rmse(est, gt, with_scale=True)
+
+
+def loop_sequences(width: int = W, height: int = H, intrinsics=CAMERA) -> dict:
+    """The vocabulary phase's sessions, each (images, R_cw, t_cw, stamps):
+    "loop" (a), "merge" (b), "reloc" (client 1's frames) and "localize"
+    (client 0's frames in localization mode), from `orbit_views`."""
+    a0 = -LOOP_ARC / 2  # the opening view, as `orbit_trajectory` starts
+    loop_a = LOOP_ARC * np.arange(LOOP_FRAMES) / (LOOP_FRAMES - 1) + a0
+    back = a0 + MERGE_START + MERGE_STEP * np.arange(MERGE_FRAMES + LOCALIZE_FRAMES)
+    plan = (("loop", loop_a, 2.0), ("merge", back[:MERGE_FRAMES], MERGE_RADIUS),
+            ("reloc", a0 + np.asarray(RELOC_ANGLES), 2.0),
+            ("localize", back[MERGE_FRAMES:], MERGE_RADIUS))
+    out, t0, first = {}, 0.0, 0
+    for name, angles, radius in plan:
+        imgs, R, t = orbit_views(angles, width, height, intrinsics, radius=radius,
+                                 first_seed=first)
+        stamps = t0 + np.arange(len(angles)) / 20.0
+        out[name] = (imgs, R, t, stamps)
+        t0, first = stamps[-1] + SESSION_GAP_S, first + len(angles)
+    # client 0 carries on from the merge session's last view
+    out["localize"] = out["localize"][:3] + (out["merge"][3][-1] + 0.05
+                                            + np.arange(LOCALIZE_FRAMES) / 20.0,)
+    return out
+
+
+def loop_phase_report(slam, seqs: dict, sync=lambda: None,
+                      progress=lambda name, out: None) -> dict:
+    """Drive the vocabulary phase's sessions through `slam` (a `Slam` of
+    either package, loop closing on) and read what it did: the loop and
+    merge events with the session frame they fired at, the keyframes' slots
+    and uids and the matched keyframe's frame of the loop session; the loop
+    session's tracked share, keyframes, points and Sim3-aligned ATE; the
+    merged map's keyframes per session; client 1's tracked frames and pose
+    errors after the merged map's Sim3 alignment; the keyframes that
+    localization mode added; host ms per frame (`sync` before each read of
+    the clock). `progress(session, out)` runs after each session."""
+    where = {}   # stamp -> (session, frame)
+    truth = {}   # stamp -> (R_cw, t_cw)
+    for name, (_, R, t, stamps) in seqs.items():
+        for i, ts in enumerate(stamps):
+            where[round(float(ts), 6)] = (name, i)
+            truth[round(float(ts), 6)] = (R[i], t[i])
+
+    def frame_of(m, k):
+        return where.get(round(float(m.kf_ts[k]), 6), ("?", -1))
+
+    def session(name, client=0):
+        imgs, _, _, stamps = seqs[name]
+        tracked, poses, ms = [], [], []
+        for i in range(len(stamps)):
+            n_ev = len(slam.loop_closer.events)
+            t0 = time.perf_counter()
+            pose = slam.track_monocular(imgs[i], float(stamps[i]), client_id=client)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            tracked.append(pose is not None)
+            poses.append(pose)
+            for ev in slam.loop_closer.events[n_ev:]:
+                m = slam.atlas.active
+                events.append(dict(
+                    kind=ev.kind, session=name, frame=i, kf=int(ev.kf),
+                    kf_uid=int(m.kf_uid[ev.kf]), kf_frame=frame_of(m, ev.kf),
+                    matched_kf=int(ev.matched_kf),
+                    matched_uid=int(m.kf_uid[ev.matched_kf]),
+                    matched_frame=frame_of(m, ev.matched_kf), scale=float(ev.scale),
+                    inliers=int(ev.n_inliers)))
+        return tracked, poses, ms
+
+    events, out = [], {}
+    tracked, _, ms = session("loop")
+    m = slam.trackers[0].map
+    init = tracked.index(True) if any(tracked) else -1
+    _, R_gt, t_gt, stamps = seqs["loop"]
+    full = slam._full_poses()
+    out["loop"] = dict(
+        init_frame=init, tracked_after_init=sum(tracked[init:]) / len(tracked[init:])
+        if init >= 0 else 0.0, keyframes=int(m.n_keyframes), points=int(m.n_points),
+        maps=len(slam.atlas.maps), poses=len(full),
+        ate=trajectory_ate(full, R_gt, t_gt, stamps) if len(full) >= 3 else None,
+        centres=[[float(v) for v in p[2]] for p in full], ms=ms)
+    progress("loop", dict(out, events=events))
+    slam.change_dataset()
+    tracked, _, ms = session("merge")
+    m = slam.atlas.active
+    kf_sessions = {}
+    for k in m.keyframe_ids():
+        name = frame_of(m, k)[0]
+        kf_sessions[name] = kf_sessions.get(name, 0) + 1
+    out["merge"] = dict(tracked=sum(tracked), frames=len(tracked), ms=ms,
+                        maps=len(slam.atlas.maps), active_keyframes=int(m.n_keyframes),
+                        active_points=int(m.n_points), keyframes_by_session=kf_sessions)
+    progress("merge", dict(out, events=events))
+    slam.add_client(1)
+    n_reloc = sum(e["event"] == "relocalized" for e in slam.events)
+    tracked, poses, ms = session("reloc", client=1)
+    m = slam.trackers[1].map
+    kfs = m.keyframe_ids()
+    kf_c = np.asarray([-m.kf_R[k].T @ m.kf_t[k] for k in kfs], np.float64)
+    gt = [truth[round(float(m.kf_ts[k]), 6)] for k in kfs]
+    kf_gt = np.asarray([-R.T @ t for R, t in gt], np.float64)
+    got = [(j, p) for j, p in enumerate(poses) if p is not None]
+    errs = ([], [])
+    if got:
+        stamps = seqs["reloc"][3]
+        tr = [truth[round(float(stamps[j]), 6)] for j, _ in got]
+        errs = aligned_pose_errors(
+            kf_c, kf_gt, np.asarray([p[0].T for _, p in got]),
+            np.asarray([-p[0].T @ p[1] for _, p in got]),
+            np.asarray([R.T for R, _ in tr]), np.asarray([-R.T @ t for R, t in tr]))
+    out["reloc"] = dict(tracked=tracked, ms=ms,
+                        relocalized=sum(e["event"] == "relocalized"
+                                        for e in slam.events) - n_reloc,
+                        centre_err_m=[float(x) for x in errs[0]],
+                        rot_err_deg=[float(x) for x in errs[1]],
+                        map_keyframes=int(m.n_keyframes))
+    progress("reloc", dict(out, events=events))
+    slam.activate_localization_mode()
+    maps = {id(mm): mm for mm in list(slam.atlas.maps.values()) + [slam.trackers[0].map]}
+    kf_before = {key: int(mm._next_uid) for key, mm in maps.items()}
+    tracked, _, ms = session("localize")
+    out["localize"] = dict(tracked=tracked, ms=ms, keyframes_added=sum(
+        int(mm._next_uid) - kf_before[key] for key, mm in maps.items()))
+    slam.deactivate_localization_mode()
+    out["events"] = events
+    return out
+
+
+def vocab_slam(seqs: dict, camera: Camera, plain: bool = False) -> dict:
+    """`loop_phase_report` of a mono `Slam` with the shipped vocabulary on
+    the card, global BA inline, launch counters set to 0 just before and
+    read just after (per session too, and across each loop correction and
+    merge). The kernel run keeps the first K1 input of each matcher policy.
+    With `plain`, the kernels' plain versions run instead."""
+    cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
+                       tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
+                                             scale_factor=SCALE))
+    slam = Slam(camera, cfg, vocab=load_default_vocabulary())
+    slam.loop_closer.gba_background = False
+    sessions, corrections = {}, []
+    saved = LoopCloser._correct_loop, LoopCloser._merge_maps
+
+    def counted(fn, kind):
+        def run(self, *args, **kwargs):
+            before = dict(_build.launches)
+            out = fn(self, *args, **kwargs)
+            corrections.append((kind, {k: v - before.get(k, 0)
+                                       for k, v in _build.launches.items()
+                                       if v != before.get(k, 0)}))
+            return out
+        return run
+
+    def progress(name, _out):
+        sessions[name] = dict(_build.launches)
+
+    LoopCloser._correct_loop = counted(saved[0], "loop")
+    LoopCloser._merge_maps = counted(saved[1], "merge")
+    try:
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            else:
+                k1_calls = stack.enter_context(capture(
+                    hamming, "masked_top2", first_per(lambda args, kw: kw.get("policy"))))
+            torch.cuda.synchronize()
+            timing.reset()
+            timing.enable(not plain)
+            _build.launches.clear()
+            report = loop_phase_report(slam, seqs, sync=torch.cuda.synchronize,
+                                       progress=progress)
+            launches = dict(_build.launches)
+    finally:
+        LoopCloser._correct_loop, LoopCloser._merge_maps = saved
+        timing.enable(False)
+    out = dict(report=report, launches=launches, sessions=sessions,
+               corrections=corrections, stages=timing.stats(), slam=slam)
+    if not plain:
+        out["k1_inputs"] = {kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
+                            for (a, b, mk), kw in k1_calls}
+    return out
+
+
+def bow_input(slam, img) -> tuple:
+    """K1's input under policy "bow" at one real mask: client 0's
+    `TrackReferenceKeyFrame` of a frame against its reference keyframe
+    (captured from the call; its launches are not the main path's)."""
+    tracker = slam.trackers[0]
+    feats = extract_features(torch.as_tensor(img, dtype=torch.float32, device=slam.device),
+                             n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE)
+    with capture(hamming, "masked_top2",
+                 lambda args, kw: kw.get("policy") == "bow") as calls:
+        tracker._track_reference_keyframe_bow(feats)
+    (a, b, mk), _ = calls[0]
+    return hamming._as_words(a), hamming._as_words(b), mk
+
+
+def check_vocab(run: dict, smi: str) -> None:
+    """The vocabulary phase's checks against the JAX package's run
+    (LOOP_REFERENCE), with what they read printed first."""
+    rep, ref = run["report"], LOOP_REFERENCE
+    loop = [e for e in rep["events"] if e["kind"] == "loop" and e["session"] == "loop"]
+    merge = [e for e in rep["events"] if e["kind"] == "merge" and e["session"] == "merge"]
+    lp, mg, rl, lz = rep["loop"], rep["merge"], rep["reloc"], rep["localize"]
+    log(f"loop session: init frame {lp['init_frame']}, tracked share "
+        f"{lp['tracked_after_init']:.3f}, {lp['keyframes']} keyframes, {lp['points']} points, "
+        f"Sim3-aligned ATE {lp['ate']:.5f} m (bound {ref['ate'] * LOOP_ATE_MARGIN:.5f} m = JAX "
+        f"package's {ref['ate']} m x {LOOP_ATE_MARGIN}); events {json.dumps(rep['events'])} "
+        f"(JAX package: loop keyframe uid {ref['loop_kf_uid']} matched uid "
+        f"{ref['loop_matched_uid']}, merge at merge-session frame {ref['merge_frame']})")
+    log(f"merge session: {mg['tracked']}/{mg['frames']} tracked, {mg['maps']} maps, active map "
+        f"{mg['active_keyframes']} keyframes {mg['active_points']} points, keyframes by "
+        f"session {mg['keyframes_by_session']}")
+    log(f"client 1: tracked {rl['tracked']}, relocalized {rl['relocalized']}, centre error "
+        f"{[round(x, 5) for x in rl['centre_err_m']]} m, rotation error "
+        f"{[round(x, 4) for x in rl['rot_err_deg']]} deg after the map's Sim3 alignment "
+        f"(bound {RELOC_TOL}; JAX package {ref['reloc_centre_err_m']} m, "
+        f"{ref['reloc_rot_err_deg']} deg); localization mode: tracked {lz['tracked']}, "
+        f"keyframes added {lz['keyframes_added']}")
+    for kind, delta in run["corrections"]:
+        log(f"launches during the {kind} correction: {json.dumps(delta, sort_keys=True)}")
+    base = {}
+    for name in ("loop", "merge", "reloc", "localize"):
+        now = run["sessions"].get(name, run["launches"])
+        log(f"launches in the {name} session: "
+            f"{json.dumps({k: v - base.get(k, 0) for k, v in now.items() if v != base.get(k, 0)}, sort_keys=True)}")
+        base = now
+    frame_ms = np.asarray(lp["ms"] + mg["ms"] + rl["ms"] + lz["ms"])
+    log(f"track_monocular ms/frame over the {len(frame_ms)} frames of the phase: p50 "
+        f"{np.percentile(frame_ms, 50):.1f}, p90 {np.percentile(frame_ms, 90):.1f}, max "
+        f"{frame_ms.max():.1f} (host wall clock, synchronized; {smi})")
+    for name, st in sorted(run["stages"].items()):
+        log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
+            f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock)")
+    if lp["tracked_after_init"] < TRACKED_SHARE:
+        raise AssertionError(f"tracked {lp['tracked_after_init']:.3f} of the loop session")
+    if not lp["ate"] <= ref["ate"] * LOOP_ATE_MARGIN:
+        raise AssertionError(f"loop session ATE {lp['ate']} m")
+    if not loop:
+        raise AssertionError("no loop fired in the loop session")
+    ev = loop[0]
+    if (abs(ev["kf_uid"] - ref["loop_kf_uid"]) > LOOP_UID_TOL
+            or abs(ev["matched_uid"] - ref["loop_matched_uid"]) > LOOP_UID_TOL
+            or ev["matched_frame"][0] != "loop" or ev["matched_frame"][1] >= OPENING_FRAMES):
+        raise AssertionError(f"the loop {ev} is not the JAX package's")
+    fixes = [d for kind, d in run["corrections"] if kind == "loop"]
+    if not fixes or fixes[0].get(f"{hamming.KERNEL}[fuse]", 0) < 1:
+        raise AssertionError("K1 did not run under the fuse policy in the loop correction")
+    if run["sessions"]["loop"].get(f"{hamming.KERNEL}[loop]", 0) < 1:
+        raise AssertionError("K1 did not run under the loop policy")
+    if not merge or abs(merge[0]["frame"] - ref["merge_frame"]) > MERGE_FRAME_TOL:
+        raise AssertionError(f"the merge {merge} is not at the JAX package's frame")
+    if min(mg["keyframes_by_session"].get(k, 0) for k in ("loop", "merge")) < 1:
+        raise AssertionError("the merged map lacks keyframes of a session")
+    errs_ok = (max(rl["centre_err_m"], default=1e9) <= RELOC_TOL[0]
+               and max(rl["rot_err_deg"], default=1e9) <= RELOC_TOL[1])
+    if not all(rl["tracked"]) or rl["relocalized"] < 1 or not errs_ok:
+        raise AssertionError("client 1 did not relocalize and track within the bound")
+    if (run["sessions"]["reloc"].get(f"{hamming.KERNEL}[reloc]", 0)
+            - run["sessions"]["merge"].get(f"{hamming.KERNEL}[reloc]", 0)) < 1:
+        raise AssertionError("K1 did not run under the reloc policy for client 1")
+    if not all(lz["tracked"]) or lz["keyframes_added"] != 0:
+        raise AssertionError("localization mode lost track or made a keyframe")
+    frames = len(frame_ms)
+    if run["launches"].get(patch.KERNEL, 0) != frames:
+        raise AssertionError(f"K2 launched {run['launches'].get(patch.KERNEL, 0)} times over "
+                             f"{frames} frames of the vocabulary phase")
+
+
+def check_vocab_agree(run: dict, plain: dict) -> None:
+    """A plain rerun of the vocabulary phase launched nothing and agrees:
+    the events (session frame, keyframe uids), the keyframe and point
+    counts, the loop session's camera centres and client 1's errors."""
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain-kernel vocabulary run launched kernels: "
+                             f"{json.dumps(plain['launches'], sort_keys=True)}")
+    a, b = run["report"], plain["report"]
+    key = [(e["kind"], e["session"], e["frame"], e["kf_uid"], e["matched_uid"])
+           for e in a["events"]]
+    d_centre = max(float(np.abs(np.asarray(a["loop"]["centres"])
+                                - np.asarray(b["loop"]["centres"])).max()),
+                   float(np.abs(np.asarray(a["reloc"]["centre_err_m"])
+                                - np.asarray(b["reloc"]["centre_err_m"])).max()))
+    counts = [(r["loop"]["keyframes"], r["loop"]["points"], r["merge"]["active_keyframes"],
+               r["merge"]["active_points"]) for r in (a, b)]
+    log(f"kernel vs plain vocabulary phase on the card: events {key} vs "
+        f"{[(e['kind'], e['session'], e['frame'], e['kf_uid'], e['matched_uid']) for e in b['events']]}, "
+        f"(loop keyframes, points, merged keyframes, points) {counts[0]} vs {counts[1]}, max "
+        f"centre diff {d_centre:.3e} m")
+    if (key != [(e["kind"], e["session"], e["frame"], e["kf_uid"], e["matched_uid"])
+                for e in b["events"]] or counts[0] != counts[1]
+            or len(a["loop"]["centres"]) != len(b["loop"]["centres"])
+            or d_centre > AGREE_CENTRE_TOL):
+        raise AssertionError("kernel and plain vocabulary runs disagree")
 
 
 def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> dict:
@@ -1110,6 +1456,24 @@ def main() -> int:
                              list(zip(sv.images, sv.images_right)), sv.frame_ts, sv.R_cw,
                              sv.t_cw, STEREO_VI_REFERENCE, smi, imu=sv_batches)
 
+    with phase("mono SLAM with a vocabulary at full width"):
+        t0 = time.perf_counter()
+        seqs = loop_sequences()
+        log(f"rendered {sum(len(v[3]) for v in seqs.values())} frames at {W}x{H} "
+            f"({', '.join(f'{k} {len(v[3])}' for k, v in seqs.items())}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        voc = vocab_slam(seqs, camera)
+        log(f"vocabulary phase: {time.perf_counter() - t0:.1f} s for the kernel run; "
+            f"launches {json.dumps(voc['launches'], sort_keys=True)}")
+        check_vocab(voc, smi)
+        voc_plain = vocab_slam(seqs, camera, plain=True)
+        check_vocab_agree(voc, voc_plain)
+        voc["k1_inputs"]["bow"] = bow_input(voc["slam"], seqs["localize"][0][-1])
+        bow_fallbacks = voc["launches"].get(f"{hamming.KERNEL}[bow]", 0)
+        log(f"the BoW fallback launched K1 {bow_fallbacks} times on the phase's path")
+        del voc["slam"], voc_plain
+
     with phase("timings"):
         extract_ms = median_frame_ms(lambda: extract_features(
             img, n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE))
@@ -1127,12 +1491,15 @@ def main() -> int:
             launches_front_end=front_launches.get(patch.KERNEL, 0),
             launches_vi=vi_launches.get(patch.KERNEL, 0),
             **{f"launches_{key}": r["launches"].get(patch.KERNEL, 0) for key, r in depth_runs},
+            launches_vocab=voc["launches"].get(patch.KERNEL, 0),
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         # K1 at one captured mask of each policy: the mono run's four, the
         # stereo run's row band, and one fisheye pair's all-valid mask
         masks = [(pol, run["k1_inputs"][pol], slam_launches) for pol in POLICIES]
         masks.append(("stereo", st_run["k1_inputs"]["stereo"], st_run["launches"]))
         masks.append(("fisheye_stereo", fisheye_pair(dev), {}))
+        masks += [(pol, voc["k1_inputs"][pol], voc["launches"])
+                  for pol in ("bow", "loop", "reloc")]
         policies = []
         for pol, (a, b, mask), launched in masks:
             rec = k1_times(a, b, mask)
@@ -1160,6 +1527,9 @@ def main() -> int:
             **{f"launches_by_policy_{key}": {
                 pol: r["launches"].get(f"{hamming.KERNEL}[{pol}]", 0)
                 for pol in DEPTH_POLICIES + ("stereo",)} for key, r in depth_runs},
+            launches_vocab=voc["launches"].get(hamming.KERNEL, 0),
+            launches_by_policy_vocab={pol: voc["launches"].get(f"{hamming.KERNEL}[{pol}]", 0)
+                                      for pol in VOCAB_POLICIES + ("bow",)},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

@@ -14,6 +14,7 @@ import torch
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
+from orbslam3_tpu_torch.place.vocab import Vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig, MapState
 from orbslam3_tpu_torch.vision.frame import FrameFeatures
 
@@ -69,6 +70,31 @@ def imu_calib(src, device=None) -> ImuCalib:
 def preintegrated(src, device=None) -> Preintegrated:
     """The port's `Preintegrated` from the JAX one (same fields)."""
     return Preintegrated(*(tensor(x, torch.float32, device) for x in src))
+
+
+def vocabulary(src) -> Vocabulary:
+    """The port's `Vocabulary` from the JAX one (numpy arrays, copied)."""
+    return Vocabulary(k=int(src.k), depth=int(src.depth),
+                      levels=[np.array(lv, np.uint32) for lv in src.levels],
+                      valid=[np.array(v, bool) for v in src.valid],
+                      idf=np.array(src.idf, np.float32))
+
+
+def keyframe_database(src, vocab: Vocabulary, device=None):
+    """The port's `KeyFrameDatabase` holding the rows of a JAX one: the same
+    rows at the same indices, the same free list."""
+    from orbslam3_tpu_torch.place.database import KeyFrameDatabase
+    M, F = src.kf_words.shape
+    db = KeyFrameDatabase(vocab, max_keyframes=M, words_per_frame=F, device=device)
+    db.kf_words = tensor(src.kf_words, torch.int32, device)
+    db.kf_weights = tensor(src.kf_weights, torch.float32, device)
+    db.active = np.array(src.active, bool)
+    db.map_of = np.array(src.map_of, np.int64)
+    db.slot_of = np.array(src.slot_of, np.int64)
+    db._row = {(int(a), int(b)): int(r) for (a, b), r in src._row.items()}
+    db._free = [int(r) for r in src._free]
+    db._next_row = int(src._next_row)
+    return db
 
 
 # The SoA arrays a map carries, copied as they are (numpy on the host).

@@ -303,6 +303,35 @@ def orbit_sequence(n_frames: int = 40, width: int = 752, height: int = 480,
     return imgs, R, t, np.arange(n_frames) / fps
 
 
+def orbit_views(angles, width: int = 752, height: int = 480,
+                intrinsics=(458.654, 457.296, 367.215, 248.375), seed: int = 7,
+                radius: float = 2.0, center=(4.0, 2.0, 9.0), rise: float = 0.4,
+                first_seed: int = 0):
+    """Views of `BoxScene.default(seed)` from the orbit of `orbit_sequence`
+    at the given angles (rad, in any order), looking at `center`: the
+    camera sits at center + (radius sin a, rise sin 2a, -radius cos a), as
+    `orbit_trajectory` places it. Frame i renders with noise seed
+    first_seed + i. Returns (images (n, h, w) uint8, R_cw (n,3,3),
+    t_cw (n,3))."""
+    cx, cy, cz = center
+    R, t = [], []
+    for a in np.asarray(angles, np.float64):
+        pos = np.array([cx + radius * np.sin(a), cy + rise * np.sin(2 * a),
+                        cz - radius * np.cos(a)], np.float32)
+        z = np.asarray(center, np.float32) - pos
+        z = z / np.linalg.norm(z)
+        x = np.cross(np.array([0.0, 1.0, 0.0], np.float32), z)
+        x /= np.linalg.norm(x)
+        R_cw = np.stack([x, np.cross(z, x), z], axis=-1).T.astype(np.float32)
+        R.append(R_cw)
+        t.append((-R_cw @ pos).astype(np.float32))
+    R, t = np.stack(R), np.stack(t)
+    scene = BoxScene.default(seed=seed)
+    imgs, _ = _render_views(scene, R, t, width, height, intrinsics, (),
+                            first_seed + np.arange(len(R)))
+    return imgs, R, t
+
+
 def orbit_stereo_sequence(n_frames: int, width: int, height: int, intrinsics, dist,
                           right, T_c1_c2, seed: int = 7, radius: float = 2.0,
                           center=(4.0, 2.0, 9.0), arc: float = 1.0, fps: float = 20.0):

@@ -9,9 +9,16 @@ loss, a bad IMU or a timestamp jump, and exports trajectories
 (`save_trajectory_tum` / `_euroc` / `_kitti`). Everything runs on `device`
 (the card unless ``device="cpu"``).
 
-Not ported yet, and raising where asked for: the vocabulary with loop
-closing and relocalization (ROADMAP slice E), atlas load and save (slice F),
-the edge server's wire features (slice H), and `async_mapping=True`.
+With a vocabulary and `use_loop_closing`, it also owns the keyframe
+database and the loop closer (`_on_keyframe` after each mapped keyframe:
+loops and merges), gives the trackers the vocabulary's words for the BoW
+fallback and `_relocalize` (database candidates, the frame matched against
+each candidate's group under K1 policy "reloc", PnP RANSAC + pose GN), and
+serves localization mode and `change_dataset`.
+
+Not ported yet, and raising where asked for: atlas load and save (ROADMAP
+slice F), the edge server's wire features (slice H), and
+`async_mapping=True`.
 """
 
 from __future__ import annotations
@@ -25,10 +32,15 @@ import torch
 
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapper, LocalMapperConfig
+from orbslam3_tpu_torch.engine.loop_closing import LoopCloser, LoopCloserConfig
 from orbslam3_tpu_torch.engine.tracking import Tracker, TrackerConfig, TrackingState
+from orbslam3_tpu_torch.kernels import hamming as ham
 from orbslam3_tpu_torch.opt.pose_gn import optimize_pose_batch
+from orbslam3_tpu_torch.place.database import KeyFrameDatabase
 from orbslam3_tpu_torch.slam_map.atlas import Atlas
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
+from orbslam3_tpu_torch.utils import timing
+from orbslam3_tpu_torch.vision.pnp import relocalize_pose
 
 
 class Sensor(enum.Enum):
@@ -53,6 +65,7 @@ class SystemConfig:
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     mapper: LocalMapperConfig = field(default_factory=LocalMapperConfig)
     imu_calib: object = None  # ImuCalib for IMU_* sensors
+    use_loop_closing: bool = True  # with a vocabulary
     async_mapping: bool = False
     # LOST with a map this mature stores it and spawns a fresh one (the
     # reference's > 10 KFs); smaller maps are reset instead
@@ -92,9 +105,6 @@ class Slam:
     def __init__(self, camera, cfg: SystemConfig = None, vocab=None,
                  load_atlas_from: str = None, device=None):
         self.cfg = cfg or SystemConfig()
-        if vocab is not None:
-            raise _not_ported("the vocabulary (loop closing, relocalization)",
-                              "slice E")
         if load_atlas_from:
             raise _not_ported("loading an atlas", "slice F")
         if self.cfg.sensor in INERTIAL and self.cfg.imu_calib is None:
@@ -106,6 +116,25 @@ class Slam:
         self.device = device_policy.resolve(device)
         self.camera = camera.to(self.device)
         self.atlas = Atlas(self.cfg.map, device=self.device)
+        self.vocab = vocab
+        self.db = None
+        self.loop_closer = None
+        if vocab is not None and self.cfg.use_loop_closing:
+            self.db = KeyFrameDatabase(vocab, max_keyframes=self.cfg.map.max_keyframes * 4,
+                                       device=self.device)
+            # stereo / RGB-D / inertial maps observe their scale: the loop
+            # Sim3 is an SE3 there; inertial maps take the 4-DoF graph
+            inertial = self.cfg.sensor in INERTIAL
+            self.loop_closer = LoopCloser(
+                self.camera, self.atlas, self.db,
+                LoopCloserConfig(fix_scale=self.cfg.sensor != Sensor.MONOCULAR,
+                                 inertial=inertial),
+                imu_calib=self.cfg.imu_calib if inertial else None, device=self.device)
+        # relocalization's PnP samples: reloc_sample_fn(change_index, valid
+        # (N,) numpy) -> (256, 6) indices; None draws them from a generator
+        # seeded with the map's change index
+        self.reloc_sample_fn = None
+        self._localization_only = False
         self.trackers: dict[int, Tracker] = {}
         self._lock = threading.Lock()
         self.events: list[dict] = []  # structured event log
@@ -114,15 +143,22 @@ class Slam:
         self._backend = self._make_backend()
         self.add_client(0)
 
-    def _make_backend(self) -> LocalMapper:
-        return LocalMapper(self.camera, self.atlas.active, cfg=self.cfg.mapper,
-                           imu_calib=self._imu_calib(), bf=self.cfg.tracker.bf,
-                           fix_scale=self.cfg.sensor in WITH_DEPTH, device=self.device)
+    def _make_backend(self) -> "_HookedMapper":
+        return _HookedMapper(LocalMapper(
+            self.camera, self.atlas.active, cfg=self.cfg.mapper,
+            imu_calib=self._imu_calib(), bf=self.cfg.tracker.bf,
+            fix_scale=self.cfg.sensor in WITH_DEPTH, device=self.device), self._on_keyframe)
 
     def _make_tracker(self, client_id: int) -> Tracker:
-        return Tracker(self.camera, self.atlas.active, self.cfg.tracker,
-                       client_id=client_id, local_mapper=self._backend,
-                       imu_calib=self._imu_calib(), device=self.device)
+        tracker = Tracker(self.camera, self.atlas.active, self.cfg.tracker,
+                          client_id=client_id, local_mapper=self._backend,
+                          relocalizer=self._relocalize, imu_calib=self._imu_calib(),
+                          device=self.device)
+        if self.db is not None:
+            # the vocabulary's words for the TrackReferenceKeyFrame fallback
+            tracker.bow_fn = self.db.words
+            tracker.bow_k = self.vocab.k
+        return tracker
 
     def _imu_calib(self):
         """The IMU calibration of an inertial sensor, else None."""
@@ -141,8 +177,25 @@ class Slam:
         return self.trackers[client_id]
 
     def activate_localization_mode(self):
-        raise _not_ported("localization mode (it relocalizes against the map)",
-                          "slice E")
+        """Reference `System::ActivateLocalizationMode`: freeze mapping and
+        track / relocalize against the map; no keyframes, no map changes.
+        An empty active map gives way to the largest stored one."""
+        self._localization_only = True
+        if self.atlas.active.n_keyframes == 0:
+            stored = [(self.atlas.maps[mid].n_keyframes, mid)
+                      for mid in self.atlas.stored_maps()]
+            if stored:
+                self.atlas.change_map(max(stored)[1])
+                self._rebind_all_trackers()
+        for tr in self.trackers.values():
+            tr.only_tracking = True
+        self._log('localization_mode', active=True)
+
+    def deactivate_localization_mode(self):
+        self._localization_only = False
+        for tr in self.trackers.values():
+            tr.only_tracking = False
+        self._log('localization_mode', active=False)
 
     # -------------------------------------------------------------- tracking
     def track_monocular(self, img, ts: float, imu=None, client_id: int = 0):
@@ -196,7 +249,10 @@ class Slam:
     def _after_track(self, tracker: Tracker):
         """Failure ladder: on LOST, store a mature map and respawn, or reset
         a young one; also services the bad-IMU flag (reset the map) and the
-        timestamp-jump requests (reset a young inertial map, else respawn)."""
+        timestamp-jump requests (reset a young inertial map, else respawn).
+        In localization mode nothing is reset or spawned."""
+        if self._localization_only:
+            return
         if tracker.map.bad_imu:
             self._log('bad_imu_reset', map=tracker.map.map_id)
             self.reset_active_map()
@@ -232,13 +288,103 @@ class Slam:
                 [(len(old_traj), tracker.map)]
             self.trackers[cid] = fresh
 
+    def change_dataset(self):
+        """Reference `System::ChangeDataset`: close the sequence: a mature
+        active map is stored and a fresh one spawned (place recognition may
+        weld them later), a young one is reset."""
+        m = self.atlas.active
+        if m.n_keyframes > self.cfg.min_kfs_to_store_map:
+            self._log('dataset_change', stored_map=m.map_id, kfs=m.n_keyframes)
+            self.atlas.create_new_map()
+            self._rebind_all_trackers()
+        else:
+            self._log('dataset_change', stored_map=None, kfs=m.n_keyframes)
+            self.reset_active_map()
+
     def reset_active_map(self):
         """Reference `System::ResetActiveMap`."""
         m = self.atlas.active
         mid = m.map_id
+        if self.db is not None:
+            self.db.clear_map(mid)
         self.atlas.maps[mid] = type(m)(m.cfg, map_id=mid, device=self.device)
         self._rebind_all_trackers()
         self._log('map_reset', map=mid)
+
+    # ------------------------------------------------------------ keyframes
+    def _on_keyframe(self, k: int):
+        """After local mapping of keyframe `k`: the loop closer's pass (the
+        LocalMapping -> LoopClosing hand-off)."""
+        if self.loop_closer is None:
+            return
+        ev = self.loop_closer.process_keyframe(k)
+        if ev is not None:
+            self._log('loop_event', loop_kind=ev.kind, kf=k)
+
+    # -------------------------------------------------------- relocalization
+    RELOC_CANDIDATES = 8     # database candidates tried per frame
+    RELOC_CAP = 2048         # candidate points per candidate group
+
+    def _relocalize(self, feats):
+        """BoW relocalization against the active map
+        (`Tracking::Relocalization`): database candidates; per candidate,
+        the points of it and its best covisible neighbours (the first
+        observation of each, at most RELOC_CAP) matched against the frame's
+        features under K1 policy "reloc" (ratio 0.75); PnP RANSAC + pose GN
+        on the matches. Returns (R_cw, t_cw, per-feature point ids, ref_kf)
+        or None."""
+        if self.db is None:
+            return None
+        m = self.atlas.active
+        if m.n_keyframes < 2:
+            return None
+        fval = feats.valid.cpu().numpy()
+        _, bow = self.db.compute_bow(feats.desc, fval)
+        covis = (lambda kf: [int(x) for x in m.covisibility(kf, min_shared=10)]
+                 if m.kf_valid[kf] else [])
+        cands = self.db.detect_relocalization_candidates(bow, covis, map_id=m.map_id)
+        uv = feats.uv
+        info = 1.0 / (1.2 ** (2 * feats.octave.float()))
+        seed = int(m.change_index) & 0x7FFFFFFF
+        for cand in list(cands[:self.RELOC_CANDIDATES]):
+            cand = int(cand)
+            if cand >= m.kf_valid.size or not m.kf_valid[cand]:
+                continue
+            group = np.asarray([cand] + [int(x) for x in
+                                         m.covisibility(cand, min_shared=15)[:4]])
+            # the group's points, each at its first observation
+            obs_g = m.kf_obs_mp[group]
+            gi_, si_ = np.nonzero(m.kf_feat_valid[group] & (obs_g >= 0))
+            mp_g = obs_g[gi_, si_]
+            okg = m.mp_valid[mp_g]
+            gi_, si_, mp_g = gi_[okg], si_[okg], mp_g[okg]
+            _, firstg = np.unique(mp_g, return_index=True)
+            if len(firstg) < 15:
+                continue
+            firstg = firstg[:self.RELOC_CAP]
+            g_mp = mp_g[firstg].astype(np.int64)
+            g_desc = np.ascontiguousarray(m.kf_desc[group[gi_[firstg]], si_[firstg]])
+            mask = feats.valid[:, None].expand(-1, len(g_mp)).contiguous()
+            with timing.stage("track.reloc_match"):
+                idx, _, ok = ham.masked_match_ratio(
+                    feats.desc, torch.from_numpy(g_desc.view(np.int32)).to(self.device),
+                    mask, max_dist=ham.TH_LOW, ratio=0.75, policy="reloc")
+            ok_np = ok.cpu().numpy() & fval
+            mp = np.where(ok_np, g_mp[idx.cpu().numpy()], -1)
+            if (mp >= 0).sum() < 15:
+                continue
+            valid = mp >= 0
+            samples = (None if self.reloc_sample_fn is None else
+                       torch.as_tensor(np.array(self.reloc_sample_fn(seed, valid))))
+            with timing.stage("track.reloc_pnp"):
+                R, t, okp, n = relocalize_pose(
+                    torch.from_numpy(m.mp_pos[np.clip(mp, 0, None)]).to(self.device), uv,
+                    info, torch.from_numpy(valid).to(self.device), self.camera,
+                    generator=torch.Generator().manual_seed(seed), samples=samples)
+            if bool(okp):
+                self._log('relocalized', kf=cand, inliers=int(n))
+                return R.cpu().numpy(), t.cpu().numpy(), mp, cand
+        return None
 
     # ----------------------------------------------------------- trajectory
     def _trajectory(self, client_id: int = 0):
@@ -349,9 +495,14 @@ class Slam:
         raise _not_ported("saving an atlas", "slice F")
 
     def flush(self):
-        """Mapping runs synchronously: nothing is in flight."""
+        """Mapping runs synchronously; waits for a global BA in flight."""
+        if self.loop_closer is not None:
+            self.loop_closer.gba.join()
 
     def shutdown(self, save_atlas_to: str = None):
+        self.flush()
+        if self.loop_closer is not None:
+            self.loop_closer.gba.abort_and_join()
         if save_atlas_to:
             self.save_atlas(save_atlas_to)
         self._log('shutdown')
@@ -366,3 +517,19 @@ class Slam:
 
     def _log(self, kind: str, **kw):
         self.events.append({'event': kind, **kw})
+
+
+class _HookedMapper:
+    """The local mapper with the system's post-keyframe hook: mapping, then
+    loop closing, in keyframe order (LocalMapping -> LoopClosing)."""
+
+    def __init__(self, mapper: LocalMapper, on_kf):
+        self.mapper = mapper
+        self._on_kf = on_kf
+
+    def process_keyframe(self, k: int):
+        self.mapper.process_keyframe(k)
+        self._on_kf(k)
+
+    def __getattr__(self, name):
+        return getattr(self.mapper, name)

@@ -28,10 +28,15 @@ projection search, pose optimization and two-view initialization run on
   hand-off after the mapper re-gauges the map (`UpdateFrameIMU`);
 - the keyframe policy (`NeedNewKeyFrame` / `CreateNewKeyFrame`, which
   on stereo and RGB-D maps spawns points at the close unmatched features);
+- with a vocabulary (`bow_fn`, set by `Slam`): `TrackReferenceKeyFrame`,
+  the reference keyframe matched by vocabulary buckets (`search_by_bow`,
+  K1 policy "bow") when the projection ladder fails;
+- relocalization through the `relocalizer` callable (`Slam._relocalize`):
+  a secondary client or a tracker in localization mode relocalizes where
+  the primary would initialize, a recently lost frame tries it, and a
+  lost tracker in localization mode keeps trying it;
+- localization mode (`only_tracking`): no keyframes;
 - the per-frame relative-pose log for trajectory export.
-
-Not ported yet, and raising where asked for: relocalization and the BoW
-fallback (ROADMAP slice E).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from orbslam3_tpu_torch.convert import words_to_int32
 from orbslam3_tpu_torch.engine.track_program import fused_track_pose
 from orbslam3_tpu_torch.imu import init as imu_init
 from orbslam3_tpu_torch.imu import preintegration as preint
+from orbslam3_tpu_torch.opt.pose_gn import optimize_pose
 from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inertial
 from orbslam3_tpu_torch.slam_map.map_state import MapState
 from orbslam3_tpu_torch.utils import timing
@@ -139,15 +145,23 @@ class Tracker:
                  imu_calib=None, device=None,
                  sample_fn: Callable | None = None):
         cfg = cfg or TrackerConfig()
-        if relocalizer is not None:
-            raise NotImplementedError("Tracker: relocalization is ROADMAP "
-                                      "slice E, not yet ported")
         self.device = device_policy.resolve(device)
         self.camera = camera.to(self.device)
         self.map = slam_map
         self.cfg = cfg
         self.client_id = client_id
         self.local_mapper = local_mapper
+        # callable(feats) -> (R_cw, t_cw, mp_ids, ref_kf) | None: BoW
+        # relocalization against the shared map
+        self.relocalizer = relocalizer
+        # the vocabulary's word function for the TrackReferenceKeyFrame
+        # fallback (set by Slam with a vocabulary): (N,8) words -> (N,) ids
+        self.bow_fn = None
+        self.bow_k = 8                      # the vocabulary's branching factor
+        self._ref_words_cache = None        # (kf uid, words)
+        # localization mode: track and relocalize against a frozen map, no
+        # keyframes
+        self.only_tracking = False
         # two-view RANSAC samples: sample_fn(frame_id, mask (N,) bool numpy)
         # -> (200, 8) indices; None draws them from a generator seeded with
         # the frame id, as the reference seeds its key
@@ -366,12 +380,21 @@ class Tracker:
         if self._pre_cur is not None:
             self._pre_frames.append(self._pre_cur)
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            if self._cur_depth is not None:
+            # secondary clients on a mature shared map, and any tracker in
+            # localization mode, relocalize instead of initializing
+            if ((self.client_id != 0 or self.only_tracking)
+                    and self.relocalizer is not None and self.map.n_keyframes >= 5):
+                if self._try_relocalize(feats):
+                    self.state = TrackingState.OK
+            elif self._cur_depth is not None:
                 self._stereo_initialization(feats, ts)
             else:
                 self._monocular_initialization(feats, ts)
         elif self.state in (TrackingState.OK, TrackingState.RECENTLY_LOST):
-            if self._track_frame(feats, ts):
+            ok = self._track_frame(feats, ts)
+            if not ok and self.relocalizer is not None:
+                ok = self._try_relocalize(feats)  # recently lost: relocalize
+            if ok:
                 self.state = TrackingState.OK
                 self._lost_count = 0
             else:
@@ -386,6 +409,10 @@ class Tracker:
                 self.state = (TrackingState.RECENTLY_LOST
                               if self._lost_count <= self.cfg.recently_lost_frames
                               else TrackingState.LOST)
+        elif self.state == TrackingState.LOST and self.only_tracking:
+            # a frozen map spawns nothing: keep trying to relocalize
+            if self.relocalizer is not None and self._try_relocalize(feats):
+                self.state = TrackingState.OK
         self._last_ts = ts
         self._record_pose(ts)
         if self.state in (TrackingState.OK, TrackingState.RECENTLY_LOST):
@@ -630,9 +657,24 @@ class Tracker:
             cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
             device=self.device, **stereo)
         if not success:
-            # TrackReferenceKeyFrame needs the vocabulary (ROADMAP slice E);
-            # without one the reference returns None here too
-            return False
+            # TrackReferenceKeyFrame: the prediction is too far off for any
+            # projection window; match the reference keyframe by vocabulary
+            # buckets (pose-free), then search the local map from there with
+            # the narrow window only
+            rec = self._track_reference_keyframe_bow(feats)
+            if rec is None:
+                return False
+            timing.count("dispatch.track_fused")
+            success, res = fused_track_pose(
+                mp_pos, mp_words, valid_pt, mp_normal, mp_min_d, mp_max_d,
+                self.camera, feats.uv, feats.desc, feats.octave, feats.valid,
+                self._t(rec[0]), self._t(rec[1]), self._t(rec[0]), self._t(rec[1]),
+                False, [cfg.proj_radius, cfg.proj_radius, cfg.proj_radius,
+                        cfg.local_radius],
+                cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
+                device=self.device, **stereo)
+            if not success:
+                return False
         res = {k: v.cpu().numpy() for k, v in res.items()}
         R1 = res["R"].astype(np.float32)
         t1 = res["t"].astype(np.float32)
@@ -750,6 +792,73 @@ class Tracker:
         return (R_cw, t_cw, inl.cpu().numpy()[:len(sel)], int(n_in), new_prior,
                 v2.astype(np.float32), b2.astype(np.float32))
 
+    def _track_reference_keyframe_bow(self, feats: FrameFeatures):
+        """TrackReferenceKeyFrame: match the frame to the reference keyframe
+        by vocabulary buckets (`search_by_bow`, pose-free), then optimize the
+        pose from the last one. Returns (R_cw, t_cw), or None below 15
+        matches or 10 inliers."""
+        if self.bow_fn is None or self.ref_kf < 0:
+            return None
+        m = self.map
+        with m.lock:
+            k = self.ref_kf
+            if not m.kf_valid[k]:
+                return None
+            kf_desc = m.kf_desc[k].copy()
+            kf_angle = m.kf_angle[k].copy()
+            kf_obs = m.kf_obs_mp[k].copy()
+            has_mp = (kf_obs >= 0) & m.kf_feat_valid[k]
+            has_mp &= np.where(kf_obs >= 0, m.mp_valid[np.maximum(kf_obs, 0)], False)
+            mp_pos_kf = m.mp_pos[np.maximum(kf_obs, 0)].copy()
+        uid = int(m.kf_uid[k])
+        if self._ref_words_cache is not None and self._ref_words_cache[0] == uid:
+            words_kf = self._ref_words_cache[1]
+        else:
+            words_kf = self.bow_fn(kf_desc)
+            self._ref_words_cache = (uid, words_kf)
+        with timing.stage("track.bow"):
+            idx, _, ok, nm = matcher.search_by_bow(
+                words_kf, self._t(words_to_int32(kf_desc)), self._t(has_mp),
+                self._t(kf_angle), self.bow_fn(feats.desc), feats.desc, feats.valid,
+                feats.angle, k=self.bow_k)
+        if int(nm) < 15:
+            return None
+        sel = np.nonzero(ok.cpu().numpy())[0]
+        idx_np = idx.cpu().numpy()
+        cap = feats.capacity
+        n_sel = min(len(sel), cap)
+        pts = np.zeros((cap, 3), np.float32)
+        uv_obs = np.zeros((cap, 2), np.float32)
+        info = np.ones(cap, np.float32)
+        valid_sel = np.zeros(cap, bool)
+        f_idx = idx_np[sel[:n_sel]]
+        pts[:n_sel] = mp_pos_kf[sel[:n_sel]]
+        uv_obs[:n_sel] = feats.uv.cpu().numpy()[f_idx]
+        info[:n_sel] = 1.0 / (1.2 ** (2 * feats.octave.cpu().numpy()[f_idx]))
+        valid_sel[:n_sel] = True
+        R, t, _, n_in = optimize_pose(
+            self._t(self.R_cw), self._t(self.t_cw), self._t(pts), self._t(uv_obs),
+            self._t(info), self._t(valid_sel), self.camera, device=self.device)
+        if int(n_in) < 10:
+            return None
+        return R.cpu().numpy(), t.cpu().numpy()
+
+    def _try_relocalize(self, feats: FrameFeatures) -> bool:
+        with timing.stage("track.relocalize"):
+            out = self.relocalizer(feats)
+        if out is None:
+            return False
+        R, t, _mp_ids, ref_kf = out
+        self._imu_prior = None   # stale after a relocalization jump
+        self._frame_bias = None
+        self.R_cw = np.asarray(R, np.float32).copy()
+        self.t_cw = np.asarray(t, np.float32).copy()
+        self._vel_R = np.eye(3, dtype=np.float32)
+        self._vel_t = np.zeros(3, np.float32)
+        self._set_ref_kf(int(ref_kf))
+        self._lost_count = 0
+        return True
+
     def _need_new_keyframe(self, n_in: int, ts: float = None) -> bool:
         """NeedNewKeyFrame: the weakness test counts the reference KF's
         well-observed points (observed by >= 3 keyframes, 2 while the map
@@ -757,7 +866,7 @@ class Tracker:
         IMU initialization and every 0.5 s after, so the preintegration
         windows stay short."""
         cfg = self.cfg
-        if self.ref_kf < 0:
+        if self.only_tracking or self.ref_kf < 0:
             return False
         m = self.map
         with m.lock:  # the observation counts and the ref KF's row together

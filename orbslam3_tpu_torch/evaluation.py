@@ -43,6 +43,23 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray, with_scale: bool = True) -> float:
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
 
 
+def aligned_pose_errors(kf_centres, kf_centres_gt, R_wc, c, R_wc_gt, c_gt):
+    """Pose errors of cameras in a map's frame after the map's own Sim3
+    alignment: the similarity that takes the keyframe centres (K, 3) onto
+    their ground truth (`umeyama_alignment` with scale) moves each camera
+    (R_wc (N,3,3), centre c (N,3)) into the truth's frame. Returns
+    (centre errors (N,) in the truth's units, rotation errors (N,) in
+    degrees)."""
+    s, R, t = umeyama_alignment(np.asarray(kf_centres, np.float64),
+                                np.asarray(kf_centres_gt, np.float64))
+    c_al = s * np.asarray(c, np.float64) @ R.T + t
+    d_c = np.linalg.norm(c_al - np.asarray(c_gt, np.float64), axis=-1)
+    R_err = np.swapaxes(np.asarray(R_wc_gt, np.float64), -1, -2) @ R @ np.asarray(
+        R_wc, np.float64)
+    cos = np.clip((np.trace(R_err, axis1=-2, axis2=-1) - 1.0) / 2.0, -1.0, 1.0)
+    return d_c, np.degrees(np.arccos(cos))
+
+
 def associate(ts_a: np.ndarray, ts_b: np.ndarray, max_dt: float = 0.02):
     """Nearest-timestamp association (reference associate.py). Returns index
     pairs (ia, ib)."""

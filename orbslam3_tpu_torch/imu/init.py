@@ -13,8 +13,8 @@ Stages (driven by `LocalMapper`):
   2. VIBA2: re-solve with priors (0, 0);
   +  monocular scale refinement at a fixed cadence.
 
-`merge_inertial_ba` (the welding-window VI-BA of map merging) belongs to
-ROADMAP slice E and raises.
+`merge_inertial_ba` is the welding-window VI-BA of a map merge
+(`MergeInertialBA`): two temporal chains over one point set.
 """
 
 from __future__ import annotations
@@ -140,10 +140,64 @@ def full_inertial_ba(m: MapState, calib: ImuCalib, camera, n_iters: int = 8,
         cut = len(kfs) - (window + 1)  # keep one extra as the fixed border
         kfs, pres = kfs[cut:], pres[cut:]
         fix_first = True
+    return _viba_over_chains(m, calib, camera, [(kfs, pres)], n_iters=n_iters,
+                             points_cap=points_cap, obs_cap=obs_cap, fix_first=fix_first,
+                             windowed=windowed, prior_gyro=prior_gyro,
+                             prior_acc=prior_acc, device=dev)
+
+
+def _window_back(m: MapState, k: int, window: int):
+    """The temporal window ending at keyframe `k`: `kf_prev` walked while
+    the link's preintegration exists, up to `window` keyframes to optimize
+    plus 1 border."""
+    kfs, pres = [int(k)], []
+    while len(kfs) < window + 1:
+        p = int(m.kf_prev[kfs[0]])
+        pre = m.kf_pre.get(kfs[0])
+        if p < 0 or not m.kf_valid[p] or pre is None:
+            break
+        kfs.insert(0, p)
+        pres.insert(0, pre)
+    return kfs, pres
+
+
+def merge_inertial_ba(m: MapState, calib: ImuCalib, camera, cur_kf: int, merge_kf: int,
+                      window: int = 10, n_iters: int = 8, points_cap: int = 4096,
+                      obs_cap: int = 16384, device=None):
+    """The welding-window visual-inertial BA over a merge seam
+    (`Optimizer::MergeInertialBA`): two temporal windows, one ending at the
+    current keyframe and one at the matched keyframe of the welded-in map,
+    each with its inertial chain, coupled through the fused seam points;
+    the back of each window is its fixed border. Overlapping windows are
+    one chain."""
+    chains = [c for c in (_window_back(m, root, window) for root in (cur_kf, merge_kf))
+              if len(c[0]) >= 2]
+    if not chains:
+        return None
+    if len(chains) == 2 and any(k in set(chains[0][0]) for k in chains[1][0]):
+        chains = chains[:1]
+    return _viba_over_chains(m, calib, camera, chains, n_iters=n_iters,
+                             points_cap=points_cap, obs_cap=obs_cap, fix_first=True,
+                             windowed=True, device=device)
+
+
+def _viba_over_chains(m: MapState, calib: ImuCalib, camera, chains: list, n_iters: int,
+                      points_cap: int, obs_cap: int, fix_first: bool, windowed: bool,
+                      prior_gyro: float = 0.0, prior_acc: float = 0.0, device=None):
+    """VI-BA over one or more temporal chains [(keyframes, preintegrations)]
+    sharing one point set; with `windowed`, the strongest outside observers
+    of those points join as a fixed border."""
+    dev = device_policy.resolve(device)
+    kfs, pairs, pres, chain_starts = [], [], [], []
+    for c_kfs, c_pres in chains:
+        off = len(kfs)
+        chain_starts.append(off)
+        pairs += [(off + i, off + i + 1) for i in range(len(c_kfs) - 1)]
+        kfs += list(c_kfs)
+        pres += list(c_pres)
     if len(kfs) < 3:
         return None
     n_chain = len(kfs)
-    pairs = [(i, i + 1) for i in range(n_chain - 1)]
 
     obs = m.kf_obs_mp[kfs]
     mp_ids = np.unique(obs[obs >= 0])
@@ -196,7 +250,7 @@ def full_inertial_ba(m: MapState, calib: ImuCalib, camera, n_iters: int = 8,
     pts[:P] = m.mp_pos[mp_ids]
     fixed_kf = np.zeros(M, bool)
     if fix_first:
-        fixed_kf[0] = True             # the chain's oldest keyframe
+        fixed_kf[chain_starts] = True  # each chain's oldest keyframe
     fixed_kf[n_chain:] = True          # the observer border stays put
 
     def t(x, dtype=None):
@@ -222,10 +276,3 @@ def full_inertial_ba(m: MapState, calib: ImuCalib, camera, n_iters: int = 8,
     # matcher's frustum gates reject the map on the next frame
     m.update_point_stats(mp_ids)
     return costs
-
-
-def merge_inertial_ba(m: MapState, calib: ImuCalib, camera, cur_kf: int,
-                      merge_kf: int, window: int = 10, n_iters: int = 8,
-                      points_cap: int = 4096, obs_cap: int = 16384):
-    raise NotImplementedError("merge_inertial_ba: map merging is ROADMAP "
-                              "slice E, not yet ported")

@@ -37,6 +37,23 @@ def distance_matrix(planes_a: torch.Tensor, planes_b: torch.Tensor) -> torch.Ten
     return ((N_BITS - dot) * 0.5).to(torch.int32)
 
 
+def distance_matrix_popcount(words_a: torch.Tensor, words_b: torch.Tensor) -> torch.Tensor:
+    """(N,8) x (M,8) packed words -> (N,M) int32 by XOR + popcount, a word
+    at a time so the intermediate stays one (N,M) buffer."""
+    a = words_a.long() & 0xFFFFFFFF
+    b = words_b.long() & 0xFFFFFFFF
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int64, device=a.device)
+    for w in range(a.shape[1]):
+        out += _popcount32(a[:, w, None] ^ b[None, :, w])
+    return out.to(torch.int32)
+
+
+def distance_vector(words_a: torch.Tensor, words_b: torch.Tensor) -> torch.Tensor:
+    """Row-wise distance between aligned packed words (N,8) x (N,8) -> (N,)."""
+    x = (words_a.long() & 0xFFFFFFFF) ^ (words_b.long() & 0xFFFFFFFF)
+    return _popcount32(x).sum(-1).to(torch.int32)
+
+
 def match_ratio(dist: torch.Tensor, max_dist: int = TH_LOW, ratio: float = 0.9):
     """Best match per row with the Lowe ratio test over a distance matrix.
 

@@ -202,7 +202,12 @@ def ba_solve_iteration(prob: BAProblem, camera, lm_lambda, segs: Segments):
     dl = torch.where((empty_lm | prob.fixed_lm)[:, None], 0.0, dl)
 
     dRs, dts = lie.se3_exp(dp)
-    R_new = lie.so3_normalize(dRs @ prob.R)
+    # a non-finite step stays non-finite, for the caller to reject (the
+    # SVD raises on it where the reference's returns NaN)
+    R_raw = dRs @ prob.R
+    finite = torch.isfinite(R_raw).all(dim=-1).all(dim=-1)[:, None, None]
+    eye = torch.eye(3, dtype=R_raw.dtype, device=R_raw.device)
+    R_new = torch.where(finite, lie.so3_normalize(torch.where(finite, R_raw, eye)), torch.nan)
     t_new = torch.einsum("mij,mj->mi", dRs, prob.t) + dts
     cost = torch.sum(robust.huber_rho(chi2, _huber_delta(prob)) * (w > 0))
     return prob._replace(R=R_new, t=t_new, points=prob.points + dl), cost

@@ -124,6 +124,10 @@ class MapState:
         # capacity events: every grow/drop is recorded here AND printed at
         # NORMAL verbosity — silent degradation is a bug
         self.events: list[dict] = []
+        # keyframe-removal observers, called with the slot: the loop closer
+        # registers the database erase here, so a culled slot never serves
+        # stale retrievals (KeyFrame::SetBadFlag -> KeyFrameDatabase::erase)
+        self.on_kf_removed: list = []
         # trajectory repair: culled-KF uid -> (anchor uid, R_ca, t_ca) where
         # T_ca maps anchor-KF camera coords to the culled KF's. Lets the
         # trajectory exporter re-anchor frames whose reference KF was culled
@@ -270,6 +274,8 @@ class MapState:
         self.kf_obs_mp[k] = -1
         self.kf_pre.pop(k, None)
         self.change_index += 1
+        for cb in self.on_kf_removed:
+            cb(int(k))
 
     def apply_scaled_rotation(self, Rgw: np.ndarray, s: float,
                               scale_velocities: bool = True):

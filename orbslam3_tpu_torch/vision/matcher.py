@@ -205,3 +205,17 @@ def fuse_by_projection(mp_pos, mp_desc, mp_valid, R, t, camera,
                                            ratio=1.0, policy="fuse")
     ok = ok & vis
     return idx, _resolve_duplicates(idx, best, ok, f_uv.shape[0])
+
+
+def search_by_bow(words1, desc1, valid1, ang1, words2, desc2, valid2, ang2,
+                  k: int, max_dist: int = ham.TH_LOW, ratio: float = 0.7):
+    """Vocabulary-bucketed matching (reference `SearchByBoW`): features are
+    compared only within the same node one level above the leaves, a
+    parent-equality mask over the leaf words, then the 0.7 ratio test, the
+    mutual check and the rotation histogram, under K1 policy "bow".
+    Returns (idx (N1,), dist (N1,), ok (N1,), n)."""
+    mask = ((words1 // k)[:, None] == (words2 // k)[None, :]) \
+        & (valid1 & (words1 >= 0))[:, None] & (valid2 & (words2 >= 0))[None, :]
+    idx, best, ok = _both_ways(desc1, desc2, mask, max_dist, ratio, "bow")
+    ok = rotation_consistency(ang1, ang2, idx, ok)
+    return idx, best, ok, torch.sum(ok)

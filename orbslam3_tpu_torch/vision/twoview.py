@@ -216,14 +216,14 @@ def _decompose_H(H):
 
 
 def draw_samples(mask: torch.Tensor, n_iters: int,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """(n_iters, 8) indices drawn with replacement among the masked
-    matches (uniformly over all matches when none is masked)."""
+                 generator: torch.Generator | None = None, size: int = 8) -> torch.Tensor:
+    """(n_iters, size) indices drawn with replacement among the masked
+    rows (uniformly over all rows when none is masked)."""
     probs = mask.float()
     if not bool(mask.any()):
         probs = torch.ones_like(probs)
-    return torch.multinomial(probs, n_iters * 8, replacement=True,
-                             generator=generator).reshape(n_iters, 8)
+    return torch.multinomial(probs, n_iters * size, replacement=True,
+                             generator=generator).reshape(n_iters, size)
 
 
 def reconstruct_two_views(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,

@@ -425,3 +425,188 @@ def test_stereo_bundle_adjust_on_the_card(cuda):
     (p0, c0, o0), (p1, c1, o1) = runs
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
     assert torch.equal(c0, c1) and torch.equal(o0, o1)
+
+
+def _vocab_mask(policy: str, rng):
+    """(a words, b words, mask) as the policy builds its mask: "bow" the
+    shipped vocabulary's parent-node equality (a frame against a keyframe
+    that sees the same points), "loop" keyframe features that carry a
+    point on both sides, "reloc" the frame's valid features against every
+    candidate point of a relocalization group."""
+    n, m = 1200, 1100
+    b = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
+    a = b[rng.integers(0, m, n)].copy()
+    flips = rng.integers(0, 256, (n, 6))
+    for j in range(6):
+        a[np.arange(n), flips[:, j] // 32] ^= (1 << (flips[:, j] % 32)).astype(np.uint32)
+    a[::7] = rng.integers(0, 2 ** 32, (len(a[::7]), 8), dtype=np.uint32)
+    va, vb = rng.random(n) < 0.95, rng.random(m) < 0.95
+    if policy == "bow":
+        from orbslam3_tpu_torch.place.vocab import load_default_vocabulary
+        voc = load_default_vocabulary()
+        wa, wb = voc.words_np(a), voc.words_np(b)
+        mask = ((wa // voc.k)[:, None] == (wb // voc.k)[None, :]) & va[:, None] & vb[None, :]
+    elif policy == "loop":
+        mask = (va & (rng.random(n) < 0.7))[:, None] & (vb & (rng.random(m) < 0.7))[None, :]
+    else:
+        mask = va[:, None] & np.ones(m, bool)[None, :]
+    return a, b, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bow", "loop", "reloc"])
+def test_top2_kernel_under_the_vocabulary_masks(cuda, policy):
+    """K1 under the vocabulary slice's masks equals its plain version, and
+    the launch counts name the policy."""
+    a, b, mask = _vocab_mask(policy, np.random.default_rng(21))
+    args = (_words_t(a), _words_t(b), torch.from_numpy(mask))
+    ref = hamming.masked_top2_reference(*args)
+    before = _build.launches[f"{hamming.KERNEL}[{policy}]"]
+    got = hamming.masked_top2(*(x.to(cuda) for x in args), policy=policy)
+    torch.cuda.synchronize()
+    assert _build.launches[f"{hamming.KERNEL}[{policy}]"] == before + 1
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+    assert int(mask.sum()) > 300
+
+
+def _ring_graph(dof):
+    """A drifted 14-vertex ring with one loop edge, built with the port's
+    own Lie functions on the CPU."""
+    from orbslam3_tpu_torch.core import lie
+    from orbslam3_tpu_torch.opt import pose_graph as pg
+    M = 14
+    a = torch.arange(M, dtype=torch.float32) * (2 * np.pi / M)
+    c = torch.stack([6 * torch.cos(a), 6 * torch.sin(a), torch.zeros(M)], -1)
+    z = -c / c.norm(dim=-1, keepdim=True)
+    x = torch.cross(torch.tensor([0.0, 0.0, 1.0]).expand(M, 3), z, dim=-1)
+    x = x / x.norm(dim=-1, keepdim=True)
+    R = torch.stack([x, torch.cross(z, x, dim=-1), z], -1).transpose(-1, -2)
+    t = -(R @ c[..., None])[..., 0]
+    drift = lie.sim3_exp(torch.tensor([[0.01, 0.005, 0.0, 0.01, -0.02, 0.03, 0.02]]) *
+                         torch.arange(M, dtype=torch.float32)[:, None])
+    s, R, t = lie.sim3_compose(torch.ones(M), R, t, *drift)
+    e_i = torch.tensor(list(range(M - 1)) + [0, 3])
+    e_j = torch.tensor(list(range(1, M)) + [M - 1, 7])
+    rel = lie.sim3_compose(s[e_j], R[e_j], t[e_j], *lie.sim3_inverse(s[e_i], R[e_i], t[e_i]))
+    m_s, m_R, m_t = rel
+    m_s = m_s.clone()
+    m_s[-2:] = 1.0
+    d = torch.tensor({"sim3": pg.DOF_SIM3, "se3": pg.DOF_SE3, "4dof": pg.DOF_4DOF}[dof])
+    dof_m = d.expand(M, 7).clone()
+    dof_m[0] = 0.0
+    return pg.PoseGraph(s, R, t, e_i, e_j, m_s, m_R, m_t,
+                        torch.linspace(0.5, 2.0, len(e_i)), dof_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dof", ["sim3", "se3", "4dof"])
+def test_optimize_pose_graph_on_the_card(cuda, dof):
+    """The essential graph on the card against the CPU (1e-4), and two
+    card runs bit for bit (segment sums, not atomics)."""
+    from orbslam3_tpu_torch.opt import pose_graph as pg
+    g = _ring_graph(dof)
+    ref = pg.optimize_pose_graph(g)
+    runs = [pg.optimize_pose_graph(pg.PoseGraph(*(x.to(cuda) for x in g))) for _ in range(2)]
+    for r, c in zip(ref, runs[0]):
+        assert (c.cpu() - r).abs().max() <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert (ref[2] - g.t).abs().max() > 1e-2
+
+
+def _two_maps(device):
+    """Two maps of one ring of 18 views: A (stored) holds views 0-11 at
+    truth, B (active) views 9-17 in a world moved by a small rigid
+    transform; returns the atlas, the seam (cur, cand) and S_cur<-cand
+    perturbed, as the JAX package's merge test builds them."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.slam_map.atlas import Atlas
+    from orbslam3_tpu_torch.slam_map.map_state import MapConfig
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(31)
+    cam = Camera.pinhole(458.0, 457.0, 376.0, 240.0, device="cpu")
+    atlas = Atlas(MapConfig(max_keyframes=64, max_points=8192, features_per_frame=512),
+                  device=device)
+    M, N = 18, 512
+    a = 2 * np.pi * np.arange(M) / M
+    c = np.stack([6 * np.cos(a), 6 * np.sin(a), np.zeros(M)], -1)
+    R_true, t_true = [], []
+    for ci in c:
+        z = -ci / np.linalg.norm(ci)
+        x = np.cross([0, 0, 1.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z], 1).T.astype(np.float32)
+        R_true.append(R)
+        t_true.append((-R @ ci).astype(np.float32))
+    pts = rng.uniform(-1.5, 1.5, (600, 3)).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (600, 8), dtype=np.uint32)
+
+    def add_kf(m, i, R, t, P, ids, prev, subset=None):
+        xc = P @ R.T + t
+        uv = cam.project(torch.from_numpy(xc)).numpy()
+        vis = (xc[:, 2] > 0.5) & (np.abs(uv[:, 0] - 376) < 370) & (np.abs(uv[:, 1] - 240) < 235)
+        if subset is not None:
+            vis &= np.isin(np.arange(len(P)), subset)
+        sel = np.nonzero(vis)[0][:N]
+        kf_uv = np.zeros((N, 2), np.float32)
+        kf_desc = np.zeros((N, 8), np.uint32)
+        obs = np.full(N, -1, np.int32)
+        kf_uv[:len(sel)], kf_desc[:len(sel)], obs[:len(sel)] = uv[sel], desc[sel], ids[sel]
+        return m.add_keyframe(R, t, float(i), i, kf_uv, np.zeros(N, np.int32),
+                              np.zeros(N, np.float32), kf_desc, obs >= 0, obs, prev_kf=prev)
+
+    m_old = atlas.active
+    ids_a = m_old.add_points(pts, desc, first_kf=0)
+    kfs_a, prev = [], -1
+    for i in range(12):
+        prev = add_kf(m_old, i, R_true[i], t_true[i], pts, ids_a, prev)
+        kfs_a.append(prev)
+    mid_b = atlas.create_new_map()
+    m_b = atlas.maps[mid_b]
+    G = Rotation.from_rotvec([0, 0, 0.04]).as_matrix().astype(np.float32)
+    g_t = np.array([0.2, -0.15, 0.1], np.float32)
+    pts_b = (pts @ G.T + g_t).astype(np.float32)
+    ids_b = m_b.add_points(pts_b, desc, first_kf=0)
+    kfs_b, prev = [], -1
+    for i in range(9, M):
+        R_off = (R_true[i] @ G.T).astype(np.float32)
+        j = i - 9
+        prev = add_kf(m_b, i, R_off, (t_true[i] - R_off @ g_t).astype(np.float32), pts_b,
+                      ids_b, prev, subset=np.arange(60 * j, min(60 * j + 180, 600)))
+        kfs_b.append(prev)
+    cur, cand = kfs_b[0], kfs_a[9]
+    R_ca = m_b.kf_R[cur] @ G @ m_old.kf_R[cand].T
+    t_ca = m_b.kf_t[cur] + m_b.kf_R[cur] @ g_t - R_ca @ m_old.kf_t[cand]
+    P = Rotation.from_rotvec([0, 0, 0.004]).as_matrix().astype(np.float32)
+    return atlas, mid_b, cur, cand, (P @ R_ca).astype(np.float32), \
+        (t_ca + np.array([0.03, 0.02, 0.0])).astype(np.float32), cam
+
+
+def _merge_on(device):
+    from orbslam3_tpu_torch.engine.loop_closing import LoopCloser, LoopCloserConfig
+    from orbslam3_tpu_torch.place.database import KeyFrameDatabase
+    from orbslam3_tpu_torch.place.vocab import build_vocabulary
+    atlas, mid_b, cur, cand, R, t, cam = _two_maps(device)
+    voc = build_vocabulary(np.random.default_rng(5).integers(0, 2 ** 32, (600, 8),
+                                                             dtype=np.uint32), k=6, depth=3)
+    lc = LoopCloser(cam, atlas, KeyFrameDatabase(voc, max_keyframes=64, device=device),
+                    LoopCloserConfig(fix_scale=True, gba_iters=5), device=device)
+    lc.gba_background = False
+    ev = lc._merge_maps(atlas.maps[mid_b], cur, atlas.maps[0], cand, 1.0, R, t, 50)
+    m = atlas.active
+    ids = m.keyframe_ids()
+    return ev, m.kf_R[ids].copy(), m.kf_t[ids].copy(), m.mp_pos[m.mp_valid].copy()
+
+
+@pytest.mark.cuda
+def test_merge_on_the_card(cuda):
+    """A map merge (weld, seam fuse under K1 "fuse", welding-window BA,
+    merge essential graph, global BA) on the card against the CPU (poses
+    1e-4), and two card runs bit for bit."""
+    ref = _merge_on("cpu")
+    runs = [_merge_on(cuda) for _ in range(2)]
+    assert runs[0][0].kf_map == ref[0].kf_map
+    assert np.abs(runs[0][1] - ref[1]).max() <= 1e-4
+    assert np.abs(runs[0][2] - ref[2]).max() <= 1e-4
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        assert np.array_equal(a, b)

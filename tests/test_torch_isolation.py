@@ -22,6 +22,9 @@ SLICE_B = ("engine.system", "engine.tracking", "engine.local_mapping", "opt.ba",
 SLICE_D = ("imu.preintegration", "imu.init", "opt.inertial", "opt.pose_inertial")
 # the modules of the stereo / RGB-D slice
 SLICE_C = ("vision.stereo", "vision.rectify", "config")
+# the modules of the place-recognition / loop-closing slice
+SLICE_E = ("place", "place.vocab", "place.database", "vision.pnp", "vision.sim3",
+           "opt.pose_graph", "engine.global_ba", "engine.loop_closing")
 
 _CHILD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -61,8 +64,9 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 43  # every module of slices A, B, C and D
-    assert {f"orbslam3_tpu_torch.{m}" for m in SLICE_B + SLICE_C + SLICE_D} <= imported
+    assert len(imported) >= 51  # every module of slices A, B, C, D and E
+    assert {f"orbslam3_tpu_torch.{m}" for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E} \
+        <= imported
 
 
 def test_no_jax_import_in_sources():

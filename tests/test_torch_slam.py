@@ -109,32 +109,40 @@ CAM = Camera.pinhole(229.3, 228.6, 183.6, 124.2, width=376, height=240, device="
 
 
 # what each case asks for, and the slice that still owns it
-UNPORTED = {"vocab": "E", "atlas": "F", "stereo": "E", "imu": "F", "async": "B",
-            "track_stereo": "E", "track_imu": "E", "localization": "E", "tracker_bf": "E",
-            "tracker_rectify": "F", "track_features_imu": "E"}
+UNPORTED = {"vocab": "F", "atlas": "F", "stereo": "F", "imu": "F", "async": "B",
+            "track_stereo": "H", "track_imu": "F", "localization": "F", "tracker_bf": "H",
+            "tracker_rectify": "F", "track_features_imu": "H"}
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_parts_raise(what):
     """What is not ported raises NotImplementedError naming its slice. The
-    stereo, RGB-D and IMU cases check what still raises on those sensors
-    (loop closing, relocalization, loading an atlas): their tracking runs
-    (tests/test_torch_stereo_slam.py, tests/test_torch_vi_slam.py)."""
+    cases that asked for slice E (the vocabulary, loop closing,
+    relocalization, localization mode, `merge_inertial_ba`) now build and
+    run that part on their sensor, then check what still raises there:
+    loading or saving an atlas (slice F) and the edge server's features
+    (slice H). tests/test_torch_place.py, test_torch_loop.py and
+    test_torch_reloc_merge.py hold slice E to the JAX package."""
     from orbslam3_tpu_torch.engine.tracking import Tracker
     from orbslam3_tpu_torch.imu.preintegration import ImuCalib
+    from orbslam3_tpu_torch.place.vocab import build_vocabulary
     from orbslam3_tpu_torch.slam_map.map_state import MapState
     from orbslam3_tpu_torch.vision.rectify import RectifyMaps
     cfg = SystemConfig()
     kw = {}
-    if what in ("vocab", "stereo", "track_imu"):
-        kw["vocab"] = object()  # loop closing and relocalization
-    if what in ("atlas", "imu", "tracker_rectify"):
+    if what in ("vocab", "stereo", "track_stereo", "track_imu", "localization",
+                "tracker_bf", "track_features_imu"):
+        kw["vocab"] = build_vocabulary(np.random.default_rng(0).integers(
+            0, 2 ** 32, (200, 8), dtype=np.uint32), k=4, depth=2)
+    if what in ("vocab", "atlas", "imu", "tracker_rectify"):
         kw["load_atlas_from"] = "atlas.npz"
-    if what in ("stereo", "track_stereo"):
+    if what in ("stereo", "track_stereo", "tracker_bf"):
         cfg.sensor, cfg.tracker = Sensor.STEREO, TrackerConfig(bf=40.0)
-    elif what in ("imu", "track_imu"):
-        cfg.sensor = Sensor.IMU_STEREO if what == "imu" else Sensor.IMU_RGBD
-        cfg.imu_calib, cfg.tracker = ImuCalib.create(), TrackerConfig(bf=40.0)
+    elif what in ("imu", "track_imu", "track_features_imu"):
+        cfg.sensor = {"imu": Sensor.IMU_STEREO, "track_imu": Sensor.IMU_RGBD,
+                      "track_features_imu": Sensor.IMU_MONOCULAR}[what]
+        cfg.imu_calib = ImuCalib.create()
+        cfg.tracker = TrackerConfig(bf=0.0 if what == "track_features_imu" else 40.0)
     elif what == "async":
         cfg.async_mapping = True
     elif what == "tracker_rectify":
@@ -143,16 +151,26 @@ def test_unported_parts_raise(what):
         cfg.tracker = TrackerConfig(bf=25.0, rectify=RectifyMaps(
             K, (-0.28, 0.07, 0, 0), K, (-0.28, 0.07, 0, 0), (376, 240), np.eye(3),
             np.array([-0.11, 0.0, 0.0]), device="cpu"))
+    if what == "tracker_bf":  # a stereo lane with a relocalizer builds
+        tr = Tracker(CAM, MapState(MapConfig(), device="cpu"), TrackerConfig(bf=40.0),
+                     relocalizer=lambda feats: None, device="cpu")
+        assert tr.relocalizer is not None
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP slice {UNPORTED[what]}, not yet ported"):
-        if what == "tracker_bf":  # a stereo lane asked to relocalize
-            Tracker(CAM, MapState(MapConfig(), device="cpu"), TrackerConfig(bf=40.0),
-                    relocalizer=lambda feats: None, device="cpu")
         slam = Slam(CAM, cfg, device="cpu", **kw)
+        if "vocab" in kw:
+            assert slam.loop_closer.cfg.fix_scale == (cfg.sensor != Sensor.MONOCULAR)
         if what in ("localization", "track_stereo"):
             slam.activate_localization_mode()
-        elif what == "track_features_imu":
-            merge_inertial_ba(slam.atlas.active, None, CAM, 0, 1)
+            assert slam.trackers[0].only_tracking
+        if what == "track_features_imu":
+            assert merge_inertial_ba(slam.atlas.active, cfg.imu_calib, CAM, 0, 1) is None
+        if what in ("track_stereo", "tracker_bf", "track_features_imu"):
+            slam.track_edge(0, None)
+        elif what == "localization":
+            slam.shutdown(save_atlas_to="atlas.npz")
+        else:
+            slam.save_atlas("atlas.npz")
 
 
 def test_entry_points_default_to_the_card():

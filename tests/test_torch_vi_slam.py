@@ -179,18 +179,26 @@ def test_config_loader_raises():
 
 
 def test_merge_inertial_ba_raises():
+    """`merge_inertial_ba` is ported (tests/test_torch_reloc_merge.py holds
+    it to the JAX package); on a map without an inertial chain it has
+    nothing to solve and returns None, as the reference."""
     m = MapState(MapConfig(16, 64, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tinit.merge_inertial_ba(m, TCAL, TCAM, 0, 1)
+    assert tinit.merge_inertial_ba(m, TCAL, TCAM, 0, 1) is None
 
 
 @pytest.mark.parametrize("sensor", [Sensor.IMU_STEREO, Sensor.IMU_RGBD])
 def test_other_inertial_sensors_raise(sensor):
-    """Stereo- and RGB-D-inertial tracking run (tests/test_torch_stereo_slam.py);
-    what still raises on them is loop closing (the vocabulary, slice E)
-    and a missing IMU calibration."""
-    with pytest.raises(NotImplementedError, match="slice E"):
-        Slam(TCAM, SystemConfig(sensor=sensor, imu_calib=TCAL), vocab=object(), device="cpu")
+    """Stereo- and RGB-D-inertial SLAM run with a vocabulary: loop closing
+    with a fixed scale and the inertial gauge. What still raises on them is
+    saving an atlas (slice F) and a missing IMU calibration."""
+    from orbslam3_tpu_torch.place.vocab import build_vocabulary
+    voc = build_vocabulary(np.random.default_rng(0).integers(0, 2 ** 32, (200, 8),
+                                                             dtype=np.uint32), k=4, depth=2)
+    slam = Slam(TCAM, SystemConfig(sensor=sensor, imu_calib=TCAL), vocab=voc, device="cpu")
+    assert slam.loop_closer.cfg.fix_scale and slam.loop_closer.cfg.inertial
+    assert slam.trackers[0].relocalizer is not None and slam.trackers[0].bow_k == 4
+    with pytest.raises(NotImplementedError, match="slice F"):
+        slam.save_atlas("atlas.npz")
     with pytest.raises(ValueError, match="needs SystemConfig.imu_calib"):
         Slam(TCAM, SystemConfig(sensor=sensor), device="cpu")
 
