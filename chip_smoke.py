@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
 Usage, from the repository root on a machine with a card and nvcc:
 
@@ -46,7 +46,25 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   Sim3 alignment), and localization mode (no keyframe). It counts K1
   under the `loop`, `fuse` (in the correction) and `reloc` policies,
   prints the loop closer's stages, and is rerun through the plain
-  versions, which must agree on the events and the map.
+  versions, which must agree on the events and the map;
+- atlas save and load: the vocabulary phase's atlas written by
+  `save_atlas`, read back by `Slam(load_atlas_from=...)` on the card
+  (every array equal, a database row per keyframe), then localization mode
+  on client 1's views (relocalized on the first, 5/5 within 2 cm / 1 deg,
+  no keyframe), with the file's size and the save and load times;
+- the edge server (the ORB-SLAM3 fork's mono_inertial_edge deployment):
+  `Slam(sensor=IMU_MONOCULAR, vocab=...)` behind an `EdgeServer` on
+  127.0.0.1, two `FakePhone`s that extract on the card (K2) and stream
+  SlamPktVI packets with their IMU in lockstep (phone 0 the mono-inertial
+  phase's first 60 frames, phone 1 ten frames of a revisit after phone
+  0's frame 45), then one acoustic round: the C++ codec, the 1000/500
+  budgets, client 0's init, IMU init and metric ATE and client 1's
+  relocalization against the JAX package's run on the same packets, K1
+  under five policies on the server; the stream again through the plain
+  versions;
+- mono SLAM with async mapping: the mono phase's frames with
+  `async_mapping=True`, held to the mono bounds, its ms/frame beside the
+  synchronous run's.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
@@ -67,11 +85,15 @@ card. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -85,6 +107,11 @@ from orbslam3_tpu_torch.config import Settings
 from orbslam3_tpu_torch.datasets.render import (BoxScene, imu_batches, orbit_sequence,
                                                 orbit_stereo_sequence, orbit_views, rgbd_sequence,
                                                 stereo_extrinsics, vi_sequence)
+from orbslam3_tpu_torch.apps.edge_server import fuse_acoustic
+from orbslam3_tpu_torch.edge import acoustic, wire
+from orbslam3_tpu_torch.edge.client_sim import FakePhone
+from orbslam3_tpu_torch.edge.server import (K_TRACK, N_FEATURES_INIT, N_FEATURES_TRACKING,
+                                            EdgeServer)
 from orbslam3_tpu_torch.engine import local_mapping
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapperConfig
 from orbslam3_tpu_torch.engine.loop_closing import LoopCloser
@@ -99,7 +126,7 @@ from orbslam3_tpu_torch.place.vocab import load_default_vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.utils.synth import orbit_trajectory
-from orbslam3_tpu_torch.vision.frame import extract_features
+from orbslam3_tpu_torch.vision.frame import extract_features, wire_arrays
 from orbslam3_tpu_torch.vision.stereo import fisheye_stereo_match
 
 # The operating point: __graft_entry__.py (EuRoC ORBextractor.nFeatures
@@ -343,6 +370,47 @@ OPENING_FRAMES = 20         # loop-session frames of the opening arc (~1 rad)
 LOOP_ATE_MARGIN = 3.0
 RELOC_TOL = (0.02, 1.0)     # m, deg: client 1 after the map's Sim3 alignment
 VOCAB_POLICIES = ("tracker", "init", "triangulation", "fuse", "loop", "reloc")
+# The edge server: the ORB-SLAM3 fork's deployment (mono_inertial_edge),
+# phones that extract ORB on the device and stream keypoints, descriptors
+# and 200 Hz IMU over TCP to one server with a shared atlas. The server's
+# Slam is IMU_MONOCULAR with the shipped vocabulary, from
+# euroc_yaml(imu=True, n_features=EDGE_FEATURES) (EuRoC cam0, the phone
+# protocol's 1000-feature ceiling; the mono-inertial phase's ladder
+# cadence), synchronous mapping, behind an EdgeServer on 127.0.0.1 with
+# max_clients 2. Phone 0 streams the first EDGE_FRAMES frames of the
+# mono-inertial phase's `vi_sequence`; phone 1 connects after phone 0's
+# frame EDGE_JOIN_AFTER and streams frames EDGE_CLIENT1 (a revisit of the
+# mapped area) EDGE_CLIENT1_OFFSET_S later, alternating with phone 0. One
+# packet is in flight at a time (each is sent after the previous reply),
+# so a run is deterministic, and the whole stream is rerun through the
+# kernels' plain versions.
+EDGE_FEATURES = 1000
+EDGE_FRAMES = 60
+EDGE_JOIN_AFTER = 45
+EDGE_CLIENT1 = tuple(range(10, 20))
+EDGE_CLIENT1_OFFSET_S = 10.0
+EDGE_WAIT_S = 300.0          # deadline of one reply
+EDGE_ACOUSTIC_TOL = 0.01     # m: cal_acoustic's distance against the truth
+EDGE_FUSE_RESIDUAL = 1e-3    # m: |d - |p - a|| after optimize_position_given_scale
+EDGE_FUSE_CPU_TOL = 1e-5     # of the largest coordinate: a solve on the card against the CPU
+EDGE_FUSE_GRAD = 1e-4        # |J^T r| (f64, numpy) at the 6-phone solution: a stationary point
+EDGE_FUSE_NOISE_M = 0.005    # m: seeded range noise of the 6-phone solve (one sample is 7.2 mm)
+EDGE_TRACKED_SHARE = 0.8
+EDGE_FRAME_TOL = 2           # frames: client 0's init and IMU-init frames
+EDGE_MARGIN = 3.0            # client 0's metric ATE, client 1's centre errors
+EDGE_POLICIES = ("tracker", "init", "triangulation", "fuse", "reloc")
+# The JAX package on the same packet stream (CPU, 526 s; the port's
+# extract_features on the CPU playing the phones at the budgets the JAX
+# server sent back):  python scripts/port_edge_reference.py
+# client 0 initialized at frame 6 (budgets 1000 then 500 from frame 7),
+# the IMU at frame 42, tracked every frame from 6, 11 keyframes, 740
+# points, metric ATE 0.006249 m (Sim3 0.006133 m) over 54 poses; phone 1's
+# frames 0 and 5 were tracked (8 left to the 1-in-5 rule), both
+# relocalized, centre errors 0.35 / 0.60 cm and 1.06 deg after the map's
+# Sim3 alignment; cal_acoustic 1.12832 m for a true 1.12922 m.
+EDGE_REFERENCE = dict(init_frame=6, imu_init_frame=42, ate_metric=0.006249,
+                      client1_reloc_at=0, client1_centre_err_m=0.006017,
+                      client1_rot_err_deg=1.056)
 # A fisheye pair for K1's all-valid mask: TUM-VI's KB8 cameras (cam0/cam1
 # of its calibration) at their 512x512 and 1000 features, a 0.101 m
 # baseline, one frame of the mono phase's orbit.
@@ -788,16 +856,285 @@ def loop_phase_report(slam, seqs: dict, sync=lambda: None,
     return out
 
 
+def localize_loaded(slam, seqs: dict) -> dict:
+    """Localization mode on a `Slam` (either package) loaded from the
+    vocabulary phase's atlas: client 1's views (`seqs["reloc"]`) through
+    client 0, a fresh lane on the largest stored map. Returns the tracked
+    frames, the relocalizations, the keyframes made, and the pose errors
+    after the map's Sim3 alignment (the keyframes' truth by timestamp)."""
+    truth = {}
+    for _, R, t, stamps in seqs.values():
+        for i, ts in enumerate(stamps):
+            truth[round(float(ts), 6)] = (R[i], t[i])
+    slam.activate_localization_mode()
+    m = slam.trackers[0].map
+    maps = {id(mm): mm for mm in list(slam.atlas.maps.values()) + [m]}
+    kf_before = {key: int(mm._next_uid) for key, mm in maps.items()}
+    n_reloc = sum(e["event"] == "relocalized" for e in slam.events)
+    imgs, R_gt, t_gt, stamps = seqs["reloc"]
+    poses = [slam.track_monocular(imgs[i], float(stamps[i])) for i in range(len(stamps))]
+    kfs = m.keyframe_ids()
+    kf_c = np.asarray([-m.kf_R[k].T @ m.kf_t[k] for k in kfs], np.float64)
+    kf_gt = np.asarray([-truth[round(float(m.kf_ts[k]), 6)][0].T
+                        @ truth[round(float(m.kf_ts[k]), 6)][1] for k in kfs], np.float64)
+    got = [(j, p) for j, p in enumerate(poses) if p is not None]
+    errs = ([], [])
+    if got:
+        errs = aligned_pose_errors(
+            kf_c, kf_gt, np.asarray([p[0].T for _, p in got]),
+            np.asarray([-p[0].T @ p[1] for _, p in got]),
+            np.asarray([R_gt[j].T for j, _ in got]),
+            np.asarray([-R_gt[j].T @ t_gt[j] for j, _ in got]))
+    return dict(tracked=[p is not None for p in poses], map_keyframes=int(m.n_keyframes),
+                relocalized=sum(e["event"] == "relocalized" for e in slam.events) - n_reloc,
+                keyframes_added=sum(int(mm._next_uid) - kf_before[key]
+                                    for key, mm in maps.items()),
+                centre_err_m=[float(x) for x in errs[0]],
+                rot_err_deg=[float(x) for x in errs[1]])
+
+
+def edge_plan(n0: int = EDGE_FRAMES) -> list[tuple[int, int, int]]:
+    """(phone, `vi_sequence` index, frame id) of each packet in sending
+    order: phone 0's frames 0..n0-1, and after its frame EDGE_JOIN_AFTER
+    phone 1's EDGE_CLIENT1 frames (ids 0, 1, ...), alternating."""
+    plan, c1 = [], list(EDGE_CLIENT1)
+    for i in range(n0):
+        plan.append((0, i, i))
+        if i >= EDGE_JOIN_AFTER and c1:
+            plan.append((1, c1.pop(0), len(EDGE_CLIENT1) - len(c1) - 1))
+    return plan
+
+
+def edge_phase_report(slam, server, extract, seq, batches, plan, phone_cls,
+                      fuse=None, sync=lambda: None, acoustic: bool = True) -> dict:
+    """Drive an edge server (either package's `EdgeServer` on 127.0.0.1,
+    its `track_fn` a `Slam.track_edge`) with `phone_cls` phones playing
+    `plan` over `seq` (a `vi_sequence`) and its per-frame IMU `batches`,
+    one packet in flight, and read what happened. Each phone extracts with
+    `extract(image, budget)` (port `FrameFeatures`) at its budget: 1000 until
+    a CmdPkt sets it. A packet the server's 1-in-k rule skips gets no reply;
+    this function then waits until the lane took it. Then one acoustic round:
+    `broadcast_emit`, both phones report the interval of their true
+    distance, `cal_acoustic`, and `fuse(server, dists, slam.device)` when
+    given. Closes
+    the phones and the server. `sync` runs before each read of the clock."""
+    index = {(p, fid): idx for p, idx, fid in plan}
+    truth = {}
+    records = []
+    inner = server.track_fn
+
+    def stamp(p, idx):
+        return float(seq.frame_ts[idx]) + (EDGE_CLIENT1_OFFSET_S if p == 1 else 0.0)
+
+    def timed(cid, pkt):
+        t0 = time.perf_counter()
+        out = inner(cid, pkt)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tr = slam.trackers[cid]
+        m = tr.map
+        records.append(dict(
+            client=cid, frame_id=int(pkt.frame_id), index=index[(cid, int(pkt.frame_id))],
+            ok=out is not None, state=tr.state.name, keyframes=int(m.n_keyframes),
+            points=int(m.n_points), imu_initialized=bool(m.imu_initialized),
+            events=len(slam.events), features=int(pkt.uv.shape[0]), ms=ms,
+            centre=None if out is None else [float(v) for v in -out[0].T @ out[1]],
+            pose=out))
+        return out
+
+    server.track_fn = timed
+    phones, sent, rtt, extract_ms, skipped = {}, [], [], [], 0
+    try:
+        for p, idx, fid in plan:
+            if p not in phones:
+                phones[p] = phone_cls("127.0.0.1", server.slam_port,
+                                      server.acoustic_port if acoustic else None, p)
+                deadline = time.monotonic() + 30.0
+                while len(server.lanes) <= p:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"phone {p}: the server made no lane")
+                    time.sleep(0.01)
+            ph, lane = phones[p], server.lanes[p]
+            budget = ph.feature_budget if ph.budgets else N_FEATURES_INIT
+            t0 = time.perf_counter()
+            uv, desc = wire_arrays(extract(seq.images[idx], budget))
+            sync()
+            extract_ms.append((time.perf_counter() - t0) * 1e3)
+            ts = stamp(p, idx)
+            truth[round(ts, 6)] = (seq.R_cw[idx], seq.t_cw[idx])
+            imu = batches[idx]
+            off = EDGE_CLIENT1_OFFSET_S if p == 1 else 0.0
+            imu_ns = np.asarray([round((s[0] + off) * 1e9) for s in imu], np.int64)
+            gyro = np.asarray([s[1] for s in imu], np.float32).reshape(-1, 3)
+            acc = np.asarray([s[2] for s in imu], np.float32).reshape(-1, 3)
+            # the lane's 1-in-k rule, read while nothing is in flight
+            tracks = p == 0 or lane.init_flag or fid % K_TRACK == 0
+            n_poses, n_recv = len(ph.poses), lane.stats.frames_received
+            t_send = time.monotonic()
+            ph.send_frame(fid, round(ts * 1e9), uv, desc, imu_ns, gyro, acc)
+            sent.append(dict(phone=p, frame_id=fid, index=idx, budget=budget,
+                             features=int(uv.shape[0]), tracked=tracks))
+            if tracks:
+                if not ph.wait_replies(n_poses + 1, EDGE_WAIT_S):
+                    errors = [repr(e) for e in getattr(lane, "errors", [])]
+                    raise AssertionError(f"phone {p} frame {fid}: no reply within "
+                                         f"{EDGE_WAIT_S} s; lane errors {errors}")
+                rtt.append((ph.reply_times[-1] - t_send) * 1e3)
+            else:
+                skipped += 1
+                deadline = time.monotonic() + EDGE_WAIT_S
+                while lane.stats.frames_received <= n_recv or not lane.frame_q.empty():
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"phone {p} frame {fid}: not received")
+                    time.sleep(0.002)
+        sync()
+        out = dict(records=records, sent=sent, rtt_ms=rtt, extract_ms=extract_ms,
+                   skipped=skipped,
+                   budgets={p: list(ph.budgets) for p, ph in phones.items()},
+                   replies={p: len(ph.poses) for p, ph in phones.items()},
+                   received=[int(ln.stats.frames_received) for ln in server.lanes],
+                   lane_errors=[repr(e) for ln in server.lanes
+                                for e in getattr(ln, "errors", [])],
+                   events=[e["event"] for e in slam.events])
+        if acoustic and len(phones) == 2:
+            out["acoustic"] = _edge_acoustic_round(server, phones, sent, seq, fuse,
+                                                   getattr(slam, "device", None))
+    finally:
+        for ph in phones.values():
+            ph.close()
+        server.close()
+        server.track_fn = inner
+    out.update(_edge_outcomes(slam, records, truth, seq, plan))
+    return out
+
+
+def _edge_acoustic_round(server, phones, sent, seq, fuse, device) -> dict:
+    """`broadcast_emit`; both phones report the half interval of the true
+    distance between their last views; `cal_acoustic`; `fuse` on `device`
+    (client 0's solve is read back when both lanes have tracked, with the
+    same solve on the CPU beside it). Then `_trilateration_check` on
+    `device`."""
+    last = {r["phone"]: r["index"] for r in sent}
+    c_true = {p: -seq.R_cw[i].T @ seq.t_cw[i] for p, i in last.items()}
+    d_true = float(np.linalg.norm(c_true[0] - c_true[1]))
+    base = {p: ph.emit_count for p, ph in phones.items()}
+    server.broadcast_emit()
+    for p, ph in phones.items():
+        if not ph.wait_emit(base[p], 30.0):
+            raise AssertionError(f"phone {p} got no emit")
+    n = phones[0].distance_to_interval(d_true)
+    phones[0].report_intervals({1: n})
+    phones[1].report_intervals({0: n})
+    deadline = time.monotonic() + 30.0
+    lanes = server.lanes
+    while any(q is None or q.empty() for q in (lanes[0].intervals.get(1),
+                                               lanes[1].intervals.get(0))):
+        if time.monotonic() > deadline:
+            raise AssertionError("the interval reports did not arrive")
+        time.sleep(0.005)
+    dists = server.cal_acoustic()
+    out = dict(true_m=d_true, half_interval=n, dists=[float(d) for d in dists])
+    if fuse is None:
+        return out
+    fused = fuse(server, dists, device) if dists else {}
+    if 0 in fused:
+        pos, anchors, d, new_p = fused[0]
+        cpu = acoustic.optimize_position_given_scale(pos, anchors, d, 1.0,
+                                                     device="cpu").numpy()
+        out.update(residual_m=float(abs(d[0] - np.linalg.norm(new_p - anchors[0]))),
+                   fused_clients=sorted(fused),
+                   cpu_err=float(np.abs(new_p - cpu).max() / max(np.abs(cpu).max(), 1.0)),
+                   rewritten=bool(np.allclose(lanes[0].latest_position()[1], new_p,
+                                              atol=1e-5)))
+    out.update(_trilateration_check(seq, last[0], device))
+    return out
+
+
+def _trilateration_check(seq, idx: int, device) -> dict:
+    """`optimize_position_given_scale` on a problem whose residual is not
+    zero: the true centre of view `idx` from six phones 1-3 m away in
+    seeded directions, ranges with seeded noise, started 0.26 m off.
+    Solved on `device` and on the CPU; the gradient J^T r of the range
+    cost at the solution, in f64 numpy with the closed-form Jacobian,
+    shows a stationary point."""
+    target = (-seq.R_cw[idx].T @ seq.t_cw[idx]).astype(np.float64)
+    rng = np.random.default_rng(17)
+    dirs = rng.normal(size=(6, 3))
+    anchors = (target + dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+               * rng.uniform(1.0, 3.0, (6, 1))).astype(np.float32)
+    d = (np.linalg.norm(anchors - target, axis=1)
+         + rng.normal(0.0, EDGE_FUSE_NOISE_M, len(anchors))).astype(np.float32)
+    start = (target + np.array([0.2, -0.1, 0.15])).astype(np.float32)
+    got = acoustic.optimize_position_given_scale(start, anchors, d, 1.0, device=device)
+    cpu = acoustic.optimize_position_given_scale(start, anchors, d, 1.0, device="cpu").numpy()
+    x = got.cpu().numpy().astype(np.float64)
+    diff = x - anchors.astype(np.float64)
+    rng_x = np.linalg.norm(diff, axis=1)
+    r = d.astype(np.float64) - rng_x
+    grad = (-(diff / rng_x[:, None])).T @ r
+    return dict(tri_device=str(got.device), tri_residual_rms=float(np.sqrt(np.mean(r * r))),
+                tri_grad=float(np.abs(grad).max()), tri_err_m=float(np.linalg.norm(x - target)),
+                tri_cpu_err=float(np.abs(x - cpu).max() / max(np.abs(cpu).max(), 1.0)))
+
+
+def _edge_outcomes(slam, records, truth, seq, plan) -> dict:
+    """Client 0's init and IMU-init frames, tracked share and metric ATE of
+    its `_full_poses`; client 1's tracked frames, the frame it relocalized
+    at (its tracked frames counted from 0) and its pose errors after the
+    map's Sim3 alignment; keyframe and point counts."""
+    r0 = [r for r in records if r["client"] == 0]
+    r1 = [r for r in records if r["client"] == 1]
+    init = next((r["frame_id"] for r in r0 if r["ok"]), -1)
+    imu_init = next((r["frame_id"] for r in r0 if r["imu_initialized"]), -1)
+    after = [r["ok"] for r in r0 if init >= 0 and r["frame_id"] >= init]
+    full = slam._full_poses(0)
+    full = [p for p in full if round(float(p[0]), 6) in truth]
+    ate = None
+    if len(full) >= 3:
+        est = np.asarray([p[2] for p in full], np.float64)
+        gt = np.asarray([-truth[round(float(p[0]), 6)][0].T @ truth[round(float(p[0]), 6)][1]
+                         for p in full], np.float64)
+        ate = dict(metric=ate_rmse(est, gt, with_scale=False),
+                   sim3=ate_rmse(est, gt, with_scale=True), poses=len(full))
+    m = slam.trackers[0].map
+    kfs = [k for k in m.keyframe_ids() if round(float(m.kf_ts[k]), 6) in truth]
+    got = [r for r in r1 if r["ok"]]
+    errs = ([], [])
+    if got and len(kfs) >= 3:
+        kf_c = np.asarray([-m.kf_R[k].T @ m.kf_t[k] for k in kfs], np.float64)
+        kf_gt = np.asarray([-truth[round(float(m.kf_ts[k]), 6)][0].T
+                            @ truth[round(float(m.kf_ts[k]), 6)][1] for k in kfs], np.float64)
+        R_t = np.asarray([seq.R_cw[r["index"]] for r in got])
+        t_t = np.asarray([seq.t_cw[r["index"]] for r in got])
+        errs = aligned_pose_errors(
+            kf_c, kf_gt, np.asarray([np.asarray(r["pose"][0]).T for r in got]),
+            np.asarray([r["centre"] for r in got]), np.swapaxes(R_t, 1, 2),
+            -np.einsum("nji,nj->ni", R_t, t_t))
+    reloc = next((j for j, r in enumerate(r1) if r["ok"]), -1)
+    return dict(init_frame=init, imu_init_frame=imu_init,
+                tracked_after_init=sum(after) / max(len(after), 1), ate=ate,
+                client1=dict(tracked=[r["ok"] for r in r1],
+                             frame_ids=[r["frame_id"] for r in r1], reloc_at=reloc,
+                             centre_err_m=[float(x) for x in errs[0]],
+                             rot_err_deg=[float(x) for x in errs[1]]),
+                keyframes=int(m.n_keyframes), points=int(m.n_points),
+                maps=len(slam.atlas.maps))
+
+
+def vocab_config() -> SystemConfig:
+    """The vocabulary phase's mono configuration at the operating point."""
+    return SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
+                        tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
+                                              scale_factor=SCALE))
+
+
 def vocab_slam(seqs: dict, camera: Camera, plain: bool = False) -> dict:
     """`loop_phase_report` of a mono `Slam` with the shipped vocabulary on
     the card, global BA inline, launch counters set to 0 just before and
     read just after (per session too, and across each loop correction and
     merge). The kernel run keeps the first K1 input of each matcher policy.
     With `plain`, the kernels' plain versions run instead."""
-    cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
-                       tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
-                                             scale_factor=SCALE))
-    slam = Slam(camera, cfg, vocab=load_default_vocabulary())
+    slam = Slam(camera, vocab_config(), vocab=load_default_vocabulary())
     slam.loop_closer.gba_background = False
     sessions, corrections = {}, []
     saved = LoopCloser._correct_loop, LoopCloser._merge_maps
@@ -955,13 +1292,186 @@ def check_vocab_agree(run: dict, plain: dict) -> None:
         raise AssertionError("kernel and plain vocabulary runs disagree")
 
 
-def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None) -> dict:
+def edge_run(seq, batches, plan, plain: bool = False) -> dict:
+    """The edge phase on the card: the server's `Slam` from
+    euroc_yaml(imu=True, n_features=EDGE_FEATURES) with the shipped
+    vocabulary (global BA inline) behind an `EdgeServer` on 127.0.0.1, the
+    phones extracting on the card, driven by `edge_phase_report`. The
+    launch counters are set to 0 just before and read just after; the
+    phones' launches are told apart by reading them around each
+    extraction (one packet is in flight, so the server is idle then). With
+    `plain` the kernels' plain versions run and there is no acoustic round."""
+    camera, cfg, _ = settings_config(euroc_yaml(imu=True, n_features=EDGE_FEATURES),
+                                     "imu_monocular")
+    slam = Slam(camera, cfg, vocab=load_default_vocabulary())
+    slam.loop_closer.gba_background = False
+    server = EdgeServer(slam.track_edge, host="127.0.0.1", slam_port=0, acoustic_port=0,
+                        max_clients=2)
+    phones = collections.Counter()
+
+    def extract(img, budget):
+        before = _build.snapshot()
+        feats = extract_features(img, n_features=budget, n_levels=N_LEVELS, scale=SCALE)
+        torch.cuda.synchronize()
+        phones.update({k: v - before.get(k, 0) for k, v in _build.snapshot().items()})
+        return feats
+
+    try:
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            torch.cuda.synchronize()
+            timing.reset()
+            timing.enable(not plain)
+            _build.launches.clear()
+            decodes = wire.decodes["native"]
+            report = edge_phase_report(slam, server, extract, seq, batches, plan, FakePhone,
+                                       fuse=fuse_acoustic, sync=torch.cuda.synchronize,
+                                       acoustic=not plain)
+            launches = _build.snapshot()
+    finally:
+        timing.enable(False)
+        slam.shutdown()
+    return dict(report=report, launches=launches, phones=dict(phones),
+                server={k: v - phones.get(k, 0) for k, v in launches.items()},
+                decodes=wire.decodes["native"] - decodes, stages=timing.stats(),
+                log=[e["event"] for e in slam.events])
+
+
+def budget_rule(records, client: int) -> list[int]:
+    """The budget commands a lane owes its phone: 1000 when a frame fails
+    while not (re)initializing, 500 when one succeeds while it is."""
+    flag, cmds = False, []
+    for r in records:
+        if r["client"] != client:
+            continue
+        if not flag and not r["ok"]:
+            cmds, flag = cmds + [N_FEATURES_INIT], True
+        elif flag and r["ok"]:
+            cmds, flag = cmds + [N_FEATURES_TRACKING], False
+    return cmds
+
+
+def check_edge(run: dict, plan, smi: str) -> None:
+    """The edge phase's checks against the rules and the JAX package's run
+    (EDGE_REFERENCE), with what they read printed first."""
+    rep, ref = run["report"], EDGE_REFERENCE
+    recs = rep["records"]
+    c1, ac = rep["client1"], rep.get("acoustic", {})
+    ate = rep["ate"] or {}
+    log(f"edge: {len(plan)} packets ({rep['skipped']} left untracked by the 1-in-"
+        f"{K_TRACK} rule), {run['decodes']} decoded by the C++ codec, received per lane "
+        f"{rep['received']}, replies per phone {rep['replies']}, budgets {rep['budgets']}, "
+        f"budgets extracted at {sorted(collections.Counter((s['phone'], s['budget']) for s in rep['sent']).items())}")
+    log(f"edge client 0: init frame {rep['init_frame']} (JAX package {ref['init_frame']}), "
+        f"IMU init frame {rep['imu_init_frame']} ({ref['imu_init_frame']}), tracked share "
+        f"{rep['tracked_after_init']:.3f}, metric ATE {ate.get('metric', float('nan')):.5f} m "
+        f"(bound {EDGE_MARGIN * ref['ate_metric']:.5f} m = JAX package's "
+        f"{ref['ate_metric']} m x {EDGE_MARGIN}), Sim3 {ate.get('sim3', float('nan')):.5f} m "
+        f"over {ate.get('poses')} poses; {rep['keyframes']} keyframes, {rep['points']} points, "
+        f"{rep['maps']} maps; events {run['log']}")
+    log(f"edge client 1: frames {c1['frame_ids']} tracked {c1['tracked']}, relocalized at "
+        f"its tracked frame {c1['reloc_at']} (JAX package {ref['client1_reloc_at']}), centre "
+        f"errors {[round(x, 5) for x in c1['centre_err_m']]} m (bound "
+        f"{EDGE_MARGIN * ref['client1_centre_err_m']:.5f} m), rotation errors "
+        f"{[round(x, 4) for x in c1['rot_err_deg']]} deg (JAX package "
+        f"{ref['client1_rot_err_deg']} deg)")
+    log(f"edge acoustic round: true distance {ac.get('true_m')} m, half interval "
+        f"{ac.get('half_interval')}, cal_acoustic {ac.get('dists')}, residual after "
+        f"optimize_position_given_scale {ac.get('residual_m')} m, against the CPU's solve "
+        f"{ac.get('cpu_err')} (bound {EDGE_FUSE_CPU_TOL}), fused clients "
+        f"{ac.get('fused_clients')}, client 0's entry rewritten {ac.get('rewritten')}")
+    log(f"edge trilateration from 6 phones ({EDGE_FUSE_NOISE_M} m range noise) on "
+        f"{ac.get('tri_device')}: residual rms {ac.get('tri_residual_rms')} m, |J^T r| "
+        f"{ac.get('tri_grad')} (bound {EDGE_FUSE_GRAD}), error to the true centre "
+        f"{ac.get('tri_err_m')} m, against the CPU's solve {ac.get('tri_cpu_err')} "
+        f"(bound {EDGE_FUSE_CPU_TOL})")
+    log(f"launches on the edge path: server {json.dumps(run['server'], sort_keys=True)}, "
+        f"phones {json.dumps(run['phones'], sort_keys=True)}")
+    server_ms = np.asarray([r["ms"] for r in recs])
+    rtt, ext = np.asarray(rep["rtt_ms"]), np.asarray(rep["extract_ms"])
+    for name, v in (("server ttrack (track_edge)", server_ms),
+                    ("reply delay as the phones see it (send to pose reply)", rtt),
+                    ("phone extract_features", ext)):
+        log(f"edge {name} ms over {len(v)}: p50 {np.percentile(v, 50):.1f}, p90 "
+            f"{np.percentile(v, 90):.1f}, max {v.max():.1f} (host wall clock, synchronized; "
+            f"{smi})")
+    for name, st in sorted(run["stages"].items()):
+        log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
+            f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock)")
+    if rep["lane_errors"]:
+        raise AssertionError(f"edge lanes raised: {rep['lane_errors']}")
+    if not run["decodes"] == sum(rep["received"]) == len(plan):
+        raise AssertionError("a packet was not decoded by the C++ codec")
+    for phone in (0, 1):
+        n_tracked = sum(r["client"] == phone for r in recs)
+        if rep["replies"].get(phone) != n_tracked:
+            raise AssertionError(f"phone {phone}: {rep['replies'].get(phone)} replies for "
+                                 f"{n_tracked} tracked packets")
+        if rep["budgets"].get(phone, []) != budget_rule(recs, phone):
+            raise AssertionError(f"phone {phone}: budgets {rep['budgets'].get(phone)} break "
+                                 f"the 1000/500 rule")
+    if sum(r["client"] == 0 for r in recs) != sum(p == 0 for p, _, _ in plan):
+        raise AssertionError("client 0 did not track every packet")
+    if (abs(rep["init_frame"] - ref["init_frame"]) > EDGE_FRAME_TOL or rep["init_frame"] < 0
+            or rep["imu_init_frame"] < 0
+            or abs(rep["imu_init_frame"] - ref["imu_init_frame"]) > EDGE_FRAME_TOL):
+        raise AssertionError("client 0's init or IMU-init frame is not the JAX package's")
+    if rep["tracked_after_init"] < EDGE_TRACKED_SHARE:
+        raise AssertionError(f"client 0 tracked {rep['tracked_after_init']:.3f}")
+    if not ate.get("metric", np.inf) <= EDGE_MARGIN * ref["ate_metric"]:
+        raise AssertionError(f"client 0's metric ATE {ate.get('metric')} m")
+    if c1["reloc_at"] < 0 or abs(c1["reloc_at"] - ref["client1_reloc_at"]) > 1:
+        raise AssertionError("client 1 did not relocalize where the JAX package does")
+    if not max(c1["centre_err_m"], default=np.inf) <= EDGE_MARGIN * ref["client1_centre_err_m"]:
+        raise AssertionError(f"client 1's centre errors {c1['centre_err_m']} m")
+    if not (abs(ac["dists"][0] - ac["true_m"]) <= EDGE_ACOUSTIC_TOL
+            and ac["residual_m"] < EDGE_FUSE_RESIDUAL and ac["rewritten"]
+            and ac["cpu_err"] <= EDGE_FUSE_CPU_TOL):
+        raise AssertionError(f"the acoustic round failed: {ac}")
+    if not (ac["tri_device"].startswith("cuda") and ac["tri_grad"] <= EDGE_FUSE_GRAD
+            and ac["tri_cpu_err"] <= EDGE_FUSE_CPU_TOL
+            and ac["tri_residual_rms"] > 0.1 * EDGE_FUSE_NOISE_M):
+        raise AssertionError(f"the 6-phone trilateration failed: {ac}")
+    for pol in EDGE_POLICIES:
+        if run["server"].get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
+            raise AssertionError(f"K1 was not launched by the {pol} policy on the server")
+    if run["server"].get(patch.KERNEL, 0) != 0 or run["phones"].get(hamming.KERNEL, 0) != 0:
+        raise AssertionError("the server extracted, or a phone matched")
+    if run["phones"].get(patch.KERNEL, 0) != len(plan):
+        raise AssertionError(f"K2 launched {run['phones'].get(patch.KERNEL, 0)} times by the "
+                             f"phones over {len(plan)} phone frames")
+
+
+def check_edge_agree(run: dict, plain: dict) -> None:
+    """A plain rerun of the packet stream launched nothing and agrees with
+    the kernel run: states, keyframe and point counts, events, budgets and
+    camera centres, packet by packet."""
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain-kernel edge run launched kernels: "
+                             f"{json.dumps(plain['launches'], sort_keys=True)}")
+    a, b = run["report"]["records"], plain["report"]["records"]
+    key = ("client", "frame_id", "ok", "state", "keyframes", "points", "events")
+    ka = [tuple(r[k] for k in key) for r in a]
+    kb = [tuple(r[k] for k in key) for r in b]
+    d_centre = max((float(np.abs(np.asarray(x["centre"]) - np.asarray(y["centre"])).max())
+                    for x, y in zip(a, b) if x["centre"] and y["centre"]), default=0.0)
+    ba, bb = run["report"]["budgets"], plain["report"]["budgets"]
+    log(f"kernel vs plain edge run on the card over {len(b)} tracked packets: (client, "
+        f"frame, ok, state, keyframes, points, events) equal {ka == kb}, budgets {ba} vs "
+        f"{bb}, events {run['log'] == plain['log']}, max camera-centre diff {d_centre:.3e} m")
+    if ka != kb or ba != bb or run["log"] != plain["log"] or d_centre > AGREE_CENTRE_TOL:
+        raise AssertionError("kernel and plain edge runs disagree")
+
+
+def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None,
+              async_mapping: bool = False) -> dict:
     """`run_slam` of `Slam.track_monocular` with the tracker's defaults at
     the operating point; with `imu` the sensor is IMU_MONOCULAR at the
-    shortened ladder cadence."""
+    shortened ladder cadence; `async_mapping` maps on the worker thread."""
     cfg = SystemConfig(map=MapConfig(features_per_frame=N_FEATURES),
                        tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
-                                             scale_factor=SCALE))
+                                             scale_factor=SCALE), async_mapping=async_mapping)
     if imu is not None:
         cfg.sensor, cfg.imu_calib = Sensor.IMU_MONOCULAR, ImuCalib.create()
         cfg.mapper = LocalMapperConfig(**VI_CADENCE)
@@ -1035,10 +1545,17 @@ def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
                 for stage in (1, 2):
                     if m.iba_stage >= stage and f"viba{stage}" not in events:
                         events[f"viba{stage}"] = i
-            launches = dict(_build.launches)
+            slam.flush()  # the mapping worker's queue, with async mapping
+            torch.cuda.synchronize()
+            launches = _build.snapshot()
     finally:
         local_mapping.LocalMapper.process_keyframe = process
         timing.enable(False)
+    worker = slam._backend.backend
+    if worker is not None:
+        events["async"] = dict(queue=worker.queue_len(), errors=[repr(e) for e in worker.errors])
+        slam.shutdown()  # joins the worker
+        events["async"]["alive"] = worker.alive
     m = slam.trackers[0].map
     out = dict(tracked=tracked, init=tracked.index(True) if any(tracked) else -1,
                keyframes=m.n_keyframes, points=m.n_points, poses=slam._full_poses(),
@@ -1204,6 +1721,78 @@ def fisheye_pair(dev):
     return hamming._as_words(a), hamming._as_words(b), mask
 
 
+def atlas_round_trip(src, seqs: dict, camera: Camera) -> None:
+    """Save the vocabulary phase's atlas, load it into a fresh `Slam` on the
+    card (the keyframe database rebuilt), check every array and a database
+    row per keyframe, then localization mode on client 1's views."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "atlas.npz")
+        t0 = time.perf_counter()
+        src.save_atlas(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = Slam(camera, vocab_config(), vocab=src.vocab, load_atlas_from=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    loaded.loop_closer.gba_background = False
+    diff = [(mid, name) for mid, m in src.atlas.maps.items()
+            for name, arr in vars(m).items() if isinstance(arr, np.ndarray)
+            and not np.array_equal(getattr(loaded.atlas.maps[mid], name), arr)]
+    kfs = [(mid, int(k)) for mid, m in loaded.atlas.maps.items() for k in m.keyframe_ids()]
+    rows = sum(loaded.db.row_for(k, mid) is not None for mid, k in kfs)
+    _build.launches.clear()
+    loc = localize_loaded(loaded, seqs)
+    launches = _build.snapshot()
+    loaded.shutdown()
+    log(f"atlas: {size} bytes, {len(src.atlas.maps)} maps, {len(kfs)} keyframes; save "
+        f"{save_s:.2f} s, load {load_s:.2f} s with the database rebuild ({rows} rows); "
+        f"arrays differing {diff}")
+    log(f"loaded atlas in localization mode: client 1's views tracked {loc['tracked']}, "
+        f"relocalized {loc['relocalized']}, centre errors "
+        f"{[round(x, 5) for x in loc['centre_err_m']]} m, rotation errors "
+        f"{[round(x, 4) for x in loc['rot_err_deg']]} deg (bound {RELOC_TOL}), keyframes "
+        f"added {loc['keyframes_added']}; launches {json.dumps(launches, sort_keys=True)}")
+    if diff or rows != len(kfs):
+        raise AssertionError("the loaded atlas or its database differs from the saved one")
+    if not (loc["tracked"][0] and all(loc["tracked"]) and loc["relocalized"] >= 1
+            and max(loc["centre_err_m"]) <= RELOC_TOL[0]
+            and max(loc["rot_err_deg"]) <= RELOC_TOL[1] and loc["keyframes_added"] == 0):
+        raise AssertionError("client 1's views did not relocalize and track on the loaded "
+                             "atlas within the bound, or made a keyframe")
+    if launches.get(f"{hamming.KERNEL}[reloc]", 0) < 1:
+        raise AssertionError("K1 did not run under the reloc policy on the loaded atlas")
+
+
+def check_async(arun: dict, sync_run: dict, R_gt, t_gt, stamps, smi: str) -> None:
+    """The async mono run against the mono phase's bounds; its times beside
+    the synchronous run's."""
+    init = arun["init"]
+    after = arun["tracked"][init:] if init >= 0 else []
+    share = sum(after) / max(len(after), 1)
+    ate = trajectory_ate(arun["poses"], R_gt, t_gt, stamps)
+    ate_sync = trajectory_ate(sync_run["poses"], R_gt, t_gt, stamps)
+    worker = arun["events"]["async"]
+    log(f"async mapping: initialized at frame {init}; tracked {sum(after)}/{len(after)} "
+        f"({share:.3f}); {arun['keyframes']} keyframes, {arun['points']} points (synchronous: "
+        f"{sync_run['keyframes']}, {sync_run['points']}); ATE {ate:.5f} m (synchronous "
+        f"{ate_sync:.5f} m; bound {REFERENCE_ATE * ATE_MARGIN:.5f} m); worker {worker}; "
+        f"keyframes mapped {len(arun['kf_ms'])}; launches "
+        f"{json.dumps(arun['launches'], sort_keys=True)}")
+    for name, r in (("async", arun), ("synchronous", sync_run)):
+        v = np.asarray(r["frame_ms"])
+        log(f"track_monocular ms/frame, {name} mapping, over {len(v)} frames: p50 "
+            f"{np.percentile(v, 50):.1f}, p90 {np.percentile(v, 90):.1f}, max {v.max():.1f} "
+            f"(host wall clock, synchronized; {smi})")
+    if worker["errors"] or worker["queue"] or worker["alive"]:
+        raise AssertionError(f"the mapping worker: {worker}")
+    if not 0 <= init <= MAX_INIT_FRAME or share < TRACKED_SHARE:
+        raise AssertionError(f"async mapping: init frame {init}, tracked share {share:.3f}")
+    if not ate <= REFERENCE_ATE * ATE_MARGIN:
+        raise AssertionError(f"async mapping: ATE {ate} m")
+    check_policies(arun["launches"], SLAM_FRAMES, "async mono SLAM")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1319,6 +1908,7 @@ def main() -> int:
     with phase("mono SLAM at full width"):
         t0 = time.perf_counter()
         imgs, R_gt, t_gt, stamps = orbit_sequence(SLAM_FRAMES, W, H, CAMERA)
+        mono_frames = imgs, R_gt, t_gt, stamps
         log(f"rendered {SLAM_FRAMES} frames at {W}x{H} in {time.perf_counter() - t0:.2f} s")
         run = mono_slam(imgs, stamps, camera)
         slam_launches = run["launches"]
@@ -1472,9 +2062,33 @@ def main() -> int:
         voc["k1_inputs"]["bow"] = bow_input(voc["slam"], seqs["localize"][0][-1])
         bow_fallbacks = voc["launches"].get(f"{hamming.KERNEL}[bow]", 0)
         log(f"the BoW fallback launched K1 {bow_fallbacks} times on the phase's path")
-        del voc["slam"], voc_plain
+        del voc_plain
+
+    with phase("atlas save and load"):
+        atlas_round_trip(voc.pop("slam"), seqs, camera)
+
+    with phase("edge server at full width"):
+        plan = edge_plan()
+        t0 = time.perf_counter()
+        edge = edge_run(seq, batches, plan)
+        log(f"edge phase: {time.perf_counter() - t0:.1f} s for the kernel run over "
+            f"{len(plan)} packets")
+        check_edge(edge, plan, smi)
+        edge_plain = edge_run(seq, batches, plan, plain=True)
+        check_edge_agree(edge, edge_plain)
+        del edge_plain
+
+    with phase("mono SLAM with async mapping"):
+        imgs, R_gt, t_gt, stamps = mono_frames
+        arun = mono_slam(imgs, stamps, camera, async_mapping=True)
+        check_async(arun, run, R_gt, t_gt, stamps, smi)
+        del arun
 
     with phase("timings"):
+        others = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
+        if others:  # a launch from another thread would break the graph captures
+            raise AssertionError(f"threads still running before the timings: {others}")
+
         extract_ms = median_frame_ms(lambda: extract_features(
             img, n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE))
         track_ms = median_frame_ms(lambda: track(feats, mp, camera, R_pred, t_pred))
@@ -1492,6 +2106,8 @@ def main() -> int:
             launches_vi=vi_launches.get(patch.KERNEL, 0),
             **{f"launches_{key}": r["launches"].get(patch.KERNEL, 0) for key, r in depth_runs},
             launches_vocab=voc["launches"].get(patch.KERNEL, 0),
+            launches_edge={"server": edge["server"].get(patch.KERNEL, 0),
+                           "phones": edge["phones"].get(patch.KERNEL, 0)},
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         # K1 at one captured mask of each policy: the mono run's four, the
         # stereo run's row band, and one fisheye pair's all-valid mask
@@ -1530,6 +2146,10 @@ def main() -> int:
             launches_vocab=voc["launches"].get(hamming.KERNEL, 0),
             launches_by_policy_vocab={pol: voc["launches"].get(f"{hamming.KERNEL}[{pol}]", 0)
                                       for pol in VOCAB_POLICIES + ("bow",)},
+            launches_edge={"server": edge["server"].get(hamming.KERNEL, 0),
+                           "phones": edge["phones"].get(hamming.KERNEL, 0)},
+            launches_by_policy_edge={pol: edge["server"].get(f"{hamming.KERNEL}[{pol}]", 0)
+                                     for pol in EDGE_POLICIES + ("bow", "loop")},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

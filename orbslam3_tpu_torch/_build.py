@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -30,10 +31,27 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# Kernel launches by kernel name. Each wrapper adds one where it launches
-# its kernel and nowhere else, so a run can show the main path went
-# through the kernels. Callers reset it with `launches.clear()`.
+# Kernel launches by kernel name. Each wrapper adds one (`count`) where it
+# launches its kernel and nowhere else, so a run can show the main path
+# went through the kernels. Callers reset it with `launches.clear()` and
+# read it with `snapshot()`. With asynchronous mapping two threads launch:
+# `+=` on a Counter is a read and a write that the GIL may interleave, so
+# both `count` and `snapshot` take `_launches_lock`.
 launches: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
+
+
+def count(*names: str) -> None:
+    """Add one launch to each of `names`."""
+    with _launches_lock:
+        for name in names:
+            launches[name] += 1
+
+
+def snapshot() -> dict:
+    """A copy of the launch counts, consistent across threads."""
+    with _launches_lock:
+        return dict(launches)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

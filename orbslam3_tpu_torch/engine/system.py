@@ -16,9 +16,14 @@ fallback and `_relocalize` (database candidates, the frame matched against
 each candidate's group under K1 policy "reloc", PnP RANSAC + pose GN), and
 serves localization mode and `change_dataset`.
 
-Not ported yet, and raising where asked for: atlas load and save (ROADMAP
-slice F), the edge server's wire features (slice H), and
-`async_mapping=True`.
+Atlas checkpoints: `save_atlas` / `shutdown(save_atlas_to=)` write the
+JAX package's `.npz` format (`slam_map/serialize.py`), and
+`Slam(load_atlas_from=...)` restores it under a fresh active map and
+rebuilds the keyframe database (every loaded keyframe's BoW on `device`).
+`track_edge` is the edge server's `track_fn` (wire packets -> padded
+features -> `track_features`). With `async_mapping=True`, local mapping
+and loop closing run on a worker thread fed by a keyframe queue
+(`engine/async_engine.py`).
 """
 
 from __future__ import annotations
@@ -31,15 +36,18 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch import device as device_policy
+from orbslam3_tpu_torch.engine.async_engine import AsyncBackend
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapper, LocalMapperConfig
 from orbslam3_tpu_torch.engine.loop_closing import LoopCloser, LoopCloserConfig
 from orbslam3_tpu_torch.engine.tracking import Tracker, TrackerConfig, TrackingState
 from orbslam3_tpu_torch.kernels import hamming as ham
 from orbslam3_tpu_torch.opt.pose_gn import optimize_pose_batch
 from orbslam3_tpu_torch.place.database import KeyFrameDatabase
+from orbslam3_tpu_torch.slam_map import serialize
 from orbslam3_tpu_torch.slam_map.atlas import Atlas
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
+from orbslam3_tpu_torch.vision.frame import features_from_arrays
 from orbslam3_tpu_torch.vision.pnp import relocalize_pose
 
 
@@ -66,6 +74,8 @@ class SystemConfig:
     mapper: LocalMapperConfig = field(default_factory=LocalMapperConfig)
     imu_calib: object = None  # ImuCalib for IMU_* sensors
     use_loop_closing: bool = True  # with a vocabulary
+    # local mapping and loop closing on a worker thread fed by a keyframe
+    # queue, with an abortable local BA; False runs them inline
     async_mapping: bool = False
     # LOST with a map this mature stores it and spawns a fresh one (the
     # reference's > 10 KFs); smaller maps are reset instead
@@ -95,27 +105,24 @@ def rotation_to_quat(R: np.ndarray) -> np.ndarray:
     return q / np.linalg.norm(q)
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"Slam: {what} is ROADMAP {slice_}, not yet ported")
-
-
 class Slam:
     """Session object (reference `System`)."""
 
     def __init__(self, camera, cfg: SystemConfig = None, vocab=None,
                  load_atlas_from: str = None, device=None):
         self.cfg = cfg or SystemConfig()
-        if load_atlas_from:
-            raise _not_ported("loading an atlas", "slice F")
         if self.cfg.sensor in INERTIAL and self.cfg.imu_calib is None:
             raise ValueError(f"Slam: Sensor.{self.cfg.sensor.name} needs "
                              "SystemConfig.imu_calib")
-        if self.cfg.async_mapping:
-            raise _not_ported("async_mapping=True (the reference's "
-                              "engine/async_engine.py)", "slice B")
         self.device = device_policy.resolve(device)
         self.camera = camera.to(self.device)
-        self.atlas = Atlas(self.cfg.map, device=self.device)
+        if load_atlas_from:
+            # the saved maps come back stored, under a fresh active map
+            self.atlas = serialize.load_atlas(load_atlas_from, vocab=vocab,
+                                              check_vocab=vocab is not None,
+                                              device=self.device)
+        else:
+            self.atlas = Atlas(self.cfg.map, device=self.device)
         self.vocab = vocab
         self.db = None
         self.loop_closer = None
@@ -130,6 +137,8 @@ class Slam:
                 LoopCloserConfig(fix_scale=self.cfg.sensor != Sensor.MONOCULAR,
                                  inertial=inertial),
                 imu_calib=self.cfg.imu_calib if inertial else None, device=self.device)
+            if load_atlas_from:
+                self._rebuild_database()
         # relocalization's PnP samples: reloc_sample_fn(change_index, valid
         # (N,) numpy) -> (256, 6) indices; None draws them from a generator
         # seeded with the map's change index
@@ -137,17 +146,29 @@ class Slam:
         self._localization_only = False
         self.trackers: dict[int, Tracker] = {}
         self._lock = threading.Lock()
+        self._edge_lock = threading.Lock()  # one edge lane in `track_edge` at a time
         self.events: list[dict] = []  # structured event log
         # ONE shared mapping back end for all clients, as the reference wires
         # every tracking lane into a single LocalMapping
         self._backend = self._make_backend()
         self.add_client(0)
 
+    def _rebuild_database(self):
+        """The keyframe database of a loaded atlas: every keyframe's BoW
+        (on `device`) added under its map, as ORB-SLAM3 rebuilds its
+        KeyFrameDatabase on LoadAtlas; without it relocalization against a
+        loaded map finds no candidate."""
+        for mid, m in self.atlas.maps.items():
+            for k in m.keyframe_ids():
+                _, bow = self.db.compute_bow(m.kf_desc[k], m.kf_feat_valid[k])
+                self.db.add(int(k), bow, map_id=mid)
+
     def _make_backend(self) -> "_HookedMapper":
         return _HookedMapper(LocalMapper(
             self.camera, self.atlas.active, cfg=self.cfg.mapper,
             imu_calib=self._imu_calib(), bf=self.cfg.tracker.bf,
-            fix_scale=self.cfg.sensor in WITH_DEPTH, device=self.device), self._on_keyframe)
+            fix_scale=self.cfg.sensor in WITH_DEPTH, device=self.device), self._on_keyframe,
+            async_mode=self.cfg.async_mapping)
 
     def _make_tracker(self, client_id: int) -> Tracker:
         tracker = Tracker(self.camera, self.atlas.active, self.cfg.tracker,
@@ -185,6 +206,7 @@ class Slam:
             stored = [(self.atlas.maps[mid].n_keyframes, mid)
                       for mid in self.atlas.stored_maps()]
             if stored:
+                self._shutdown_backend()
                 self.atlas.change_map(max(stored)[1])
                 self._rebind_all_trackers()
         for tr in self.trackers.values():
@@ -244,7 +266,19 @@ class Slam:
         return out
 
     def track_edge(self, client_id: int, pkt):
-        raise _not_ported("the edge server's wire features", "slice H")
+        """The edge server's `track_fn`: a wire `FramePacket` -> padded
+        `FrameFeatures` at the tracker's `n_features` -> `track_features`
+        with the packet's IMU samples. A new client id gets its lane. The
+        server's lane threads call this concurrently; they take turns (the
+        JAX package lets them run at once on the shared map)."""
+        feats = features_from_arrays(pkt.uv, pkt.desc, capacity=self.cfg.tracker.n_features,
+                                     device=self.device)
+        imu = list(zip(pkt.imu_ts_ns * 1e-9, pkt.imu_gyro, pkt.imu_acc))
+        with self._edge_lock:
+            if client_id not in self.trackers:
+                self.add_client(client_id)
+            return self.track_features(feats, pkt.timestamp_ns * 1e-9, client_id=client_id,
+                                       imu=imu)
 
     def _after_track(self, tracker: Tracker):
         """Failure ladder: on LOST, store a mature map and respawn, or reset
@@ -264,6 +298,7 @@ class Slam:
             if req == 'reset_map':
                 self.reset_active_map()
             else:
+                self._shutdown_backend()
                 self.atlas.create_new_map()
                 self._rebind_all_trackers()
             return
@@ -272,6 +307,7 @@ class Slam:
         m = tracker.map
         if m.n_keyframes > self.cfg.min_kfs_to_store_map:
             self._log('map_stored', map=m.map_id, kfs=m.n_keyframes)
+            self._shutdown_backend()
             new_id = self.atlas.create_new_map()
             self._rebind_all_trackers()
             self._log('map_created', map=new_id)
@@ -279,6 +315,10 @@ class Slam:
             self.reset_active_map()
 
     def _rebind_all_trackers(self):
+        """A fresh back end and trackers on the new active map. The caller
+        has stopped the old worker (`_shutdown_backend`) before the active
+        map changed: its queued keyframes belong to the old map, and their
+        loop-closing pass reads `atlas.active`."""
         self._backend = self._make_backend()
         for cid, tracker in self.trackers.items():
             old_traj = tracker.trajectory
@@ -295,6 +335,7 @@ class Slam:
         m = self.atlas.active
         if m.n_keyframes > self.cfg.min_kfs_to_store_map:
             self._log('dataset_change', stored_map=m.map_id, kfs=m.n_keyframes)
+            self._shutdown_backend()
             self.atlas.create_new_map()
             self._rebind_all_trackers()
         else:
@@ -303,6 +344,7 @@ class Slam:
 
     def reset_active_map(self):
         """Reference `System::ResetActiveMap`."""
+        self._shutdown_backend()  # the queued keyframes land before the clear
         m = self.atlas.active
         mid = m.map_id
         if self.db is not None:
@@ -492,15 +534,26 @@ class Slam:
 
     # ------------------------------------------------------------ lifecycle
     def save_atlas(self, path: str):
-        raise _not_ported("saving an atlas", "slice F")
+        """Write every map of the atlas to one `.npz` (`serialize`)."""
+        serialize.save_atlas(self.atlas, path, vocab=self.vocab)
+        self._log('atlas_saved', path=path)
 
     def flush(self):
-        """Mapping runs synchronously; waits for a global BA in flight."""
+        """Drain the mapping queue (async mapping) and wait for a global BA
+        in flight."""
+        self._backend.flush()
         if self.loop_closer is not None:
             self.loop_closer.gba.join()
 
+    def _shutdown_backend(self):
+        try:
+            self._backend.shutdown()
+        except Exception as e:  # the worker's first error, kept in the log
+            self._log('backend_error', error=repr(e))
+
     def shutdown(self, save_atlas_to: str = None):
         self.flush()
+        self._shutdown_backend()
         if self.loop_closer is not None:
             self.loop_closer.gba.abort_and_join()
         if save_atlas_to:
@@ -521,15 +574,34 @@ class Slam:
 
 class _HookedMapper:
     """The local mapper with the system's post-keyframe hook: mapping, then
-    loop closing, in keyframe order (LocalMapping -> LoopClosing)."""
+    loop closing, in keyframe order (LocalMapping -> LoopClosing). With
+    `async_mode` a keyframe is queued to an `AsyncBackend` worker instead,
+    which runs both with the abort flag, and tracking returns at once."""
 
-    def __init__(self, mapper: LocalMapper, on_kf):
+    def __init__(self, mapper: LocalMapper, on_kf, async_mode: bool = False):
         self.mapper = mapper
         self._on_kf = on_kf
+        self.backend = None
+        if async_mode:
+            def process(k, abort):
+                self.mapper.process_keyframe(k, abort=abort)
+                self._on_kf(k)
+            self.backend = AsyncBackend(process)
 
     def process_keyframe(self, k: int):
+        if self.backend is not None:
+            self.backend.insert_keyframe(k)
+            return
         self.mapper.process_keyframe(k)
         self._on_kf(k)
+
+    def flush(self):
+        if self.backend is not None:
+            self.backend.flush()
+
+    def shutdown(self):
+        if self.backend is not None:
+            self.backend.shutdown()
 
     def __getattr__(self, name):
         return getattr(self.mapper, name)

@@ -154,9 +154,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
         a.data_ptr(), b.data_ptr(), mask.data_ptr(), n, m, rows, rows + 4 * n,
         rows + 8 * n, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, KERNEL)
-    _build.launches[KERNEL] += 1
-    if policy is not None:
-        _build.launches[f"{KERNEL}[{policy}]"] += 1
+    _build.count(KERNEL, *(() if policy is None else (f"{KERNEL}[{policy}]",)))
 
 
 def masked_match_ratio(planes_a: torch.Tensor, planes_b: torch.Tensor,

@@ -67,5 +67,5 @@ def gather_patches(img: torch.Tensor, ys: torch.Tensor,
             ctypes.c_void_p(ys.data_ptr()), ctypes.c_void_p(xs.data_ptr()), n,
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     _build.check(rc, KERNEL)
-    _build.launches[KERNEL] += 1
+    _build.count(KERNEL)
     return out

@@ -3,7 +3,9 @@
 Port of `orbslam3_tpu/vision/frame.py` (`FrameFeatures`, `level_quotas`,
 `extract_features`): pyramid atlas, dual-threshold dense FAST + 3x3 NMS,
 per-level uniform selection, sub-pixel fit, intensity-centroid
-orientation, Gaussian blur and steered BRIEF through kernel K2.
+orientation, Gaussian blur and steered BRIEF through kernel K2; and the
+edge server's wire features (`features_from_wire`, `features_from_arrays`)
+and `undistort`.
 """
 
 from __future__ import annotations
@@ -123,3 +125,58 @@ def extract_features(
 
     return FrameFeatures(uv=uv, uv_raw=uv, response=torch.cat(resps), angle=ang,
                          octave=torch.cat(octs), desc=desc, valid=torch.cat(valids))
+
+
+def undistort(features: FrameFeatures, camera) -> FrameFeatures:
+    """Undistort the keypoints (ORB-SLAM3's `Frame::UndistortKeyPoints`):
+    `uv` from `uv_raw` through the camera's rad-tan model; a KB8 camera
+    keeps the raw coordinates (its distortion stays in the projection)."""
+    return dataclasses.replace(features, uv=camera.undistort_points(features.uv_raw))
+
+
+def features_from_wire(uv: np.ndarray, desc: np.ndarray, n_capacity: int,
+                       device=None) -> FrameFeatures:
+    """`FrameFeatures` from an edge client's (n, 2) keypoints and (n, 8)
+    uint32 packed descriptors (the fork's frame-from-wire constructor),
+    padded or clipped to `n_capacity`, on `device` (the card unless
+    ``device="cpu"``). The uint32 words become the port's int32 words bit
+    for bit (reinterpreted, never cast by value). Octave, angle and
+    response are 0, as the wire carries none."""
+    dev = device_policy.resolve(device)
+    uv = torch.from_numpy(np.asarray(uv, np.float32))
+    d = np.ascontiguousarray(desc)
+    if d.dtype != np.uint32:
+        raise TypeError(f"features_from_wire: descriptors of dtype {d.dtype}, not uint32")
+    words = torch.from_numpy(d.view(np.int32))
+    m = min(uv.shape[0], n_capacity)
+    uv_p = torch.zeros((n_capacity, 2), dtype=torch.float32)
+    uv_p[:m] = uv[:m]
+    d_p = torch.zeros((n_capacity, 8), dtype=torch.int32)
+    d_p[:m] = words[:m]
+    uv_p, d_p = uv_p.to(dev), d_p.to(dev)
+    return FrameFeatures(
+        uv=uv_p, uv_raw=uv_p, response=torch.zeros(n_capacity, device=dev),
+        angle=torch.zeros(n_capacity, device=dev),
+        octave=torch.zeros(n_capacity, dtype=torch.int32, device=dev), desc=d_p,
+        valid=torch.arange(n_capacity, device=dev) < m)
+
+
+def features_from_arrays(uv: np.ndarray, desc_bytes: np.ndarray, capacity: int,
+                         device=None) -> FrameFeatures:
+    """Wire-format adapter: (n, 32) uint8 ORB descriptors (the SlamPktVI
+    layout) -> packed (n, 8) little-endian 32-bit words -> padded
+    `FrameFeatures`."""
+    d = np.ascontiguousarray(np.asarray(desc_bytes, np.uint8))
+    packed = d.view('<u4').reshape(d.shape[0], 8)
+    return features_from_wire(np.asarray(uv), packed, capacity, device=device)
+
+
+def wire_arrays(features: FrameFeatures) -> tuple[np.ndarray, np.ndarray]:
+    """A phone's side of `features_from_arrays`: the valid features' (n, 2)
+    float32 coordinates and (n, 32) uint8 descriptor bytes (each int32
+    word written little-endian, bit for bit), as `encode_frame` takes
+    them."""
+    valid = features.valid.cpu().numpy()
+    uv = features.uv.cpu().numpy()[valid]
+    words = np.ascontiguousarray(features.desc.cpu().numpy()[valid])
+    return uv, words.astype('<i4', copy=False).view(np.uint8).reshape(-1, 32)

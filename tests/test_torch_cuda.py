@@ -610,3 +610,113 @@ def test_merge_on_the_card(cuda):
     assert np.abs(runs[0][2] - ref[2]).max() <= 1e-4
     for a, b in zip(runs[0][1:], runs[1][1:]):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["given_scale", "regularized", "imu_chain", "key_chain",
+                                  "calibration"])
+def test_acoustic_solves_on_the_card(cuda, name):
+    """The five acoustic LM solves at the default device (the card), from
+    numpy inputs and from tensors on the card, against the CPU (1e-5 of
+    the largest entry); the result stays on the card."""
+    from orbslam3_tpu_torch.edge import acoustic
+    rng = np.random.default_rng(len(name))
+    p = rng.uniform(-2, 2, 3).astype(np.float32)
+    anchors = rng.uniform(-3, 3, (5, 3)).astype(np.float32)
+    d = (np.linalg.norm(p - anchors, axis=1) * 2.5).astype(np.float32)
+    if name == "given_scale":
+        fn, args = acoustic.optimize_position_given_scale, (p + 0.3, anchors, d, 2.5)
+    elif name == "regularized":
+        fn, args = acoustic.optimize_position_regularized, (p + 0.2, p, anchors[:2],
+                                                            d[:2] / 2.5, 1.0)
+    elif name == "imu_chain":
+        true = np.cumsum(rng.normal(0, 0.5, (6, 3)), axis=0).astype(np.float32)
+        deltas = np.vstack([np.zeros(3), np.diff(true, axis=0)]).astype(np.float32)
+        fn, args = acoustic.imu_acoustic_optimize, (
+            true + 0.1, deltas, anchors, np.linalg.norm(true[-1] - anchors, axis=1), 1.0)
+    elif name == "key_chain":
+        true = np.cumsum(rng.normal(0, 0.4, (5, 3)), axis=0).astype(np.float32)
+        dd = np.stack([np.linalg.norm(q - anchors, axis=1) for q in true[1:]])
+        fn, args = acoustic.imu_acoustic_key_optimize, (
+            true + 0.1, np.diff(true, axis=0), dd, anchors, 1.0)
+    else:
+        R = np.stack([np.eye(3)] * 4).astype(np.float32)
+        t0, t1 = rng.uniform(-2, 2, (4, 3)), rng.uniform(-2, 2, (3, 3))
+        dd = np.linalg.norm(t0[:, None] - t1[None], axis=-1) / 0.5
+        fn, args = acoustic.calibrate_mic_offset, (np.array([0.03, -0.01, 0.05]), 0.6, R, t0,
+                                                   R[:3], t1, dd)
+    ref = fn(*args, device="cpu")
+    for got in (fn(*args),
+                fn(*(torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+                     if isinstance(a, np.ndarray) else a for a in args))):
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert g.device.type == "cuda"
+            scale = max(float(r.abs().max()), 1.0)
+            assert float((g.cpu() - r).abs().max()) <= 1e-5 * scale
+
+
+def _edge_session(device, n=6):
+    """`Slam.track_edge` over `n` packets of a feature-level orbit on
+    `device` (the two-view samples from a fixed generator)."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.edge import wire
+    from orbslam3_tpu_torch.engine.system import Slam, SystemConfig
+    from orbslam3_tpu_torch.engine.tracking import TrackerConfig
+    from orbslam3_tpu_torch.slam_map.map_state import MapConfig
+    from orbslam3_tpu_torch.utils import synth
+    from orbslam3_tpu_torch.vision.frame import wire_arrays
+    cam = Camera.pinhole(458.0, 458.0, 320.0, 240.0, width=640, height=480, device=device)
+    slam = Slam(cam, SystemConfig(map=MapConfig(32, 4096, 600),
+                                  tracker=TrackerConfig(n_features=600)), device=device)
+
+    def samples(frame_id, mask):
+        g = np.random.default_rng(frame_id)
+        idx = np.nonzero(mask)[0]
+        return g.choice(idx, (200, 8))
+
+    slam.trackers[0].sample_fn = samples
+    world = synth.make_world(n_points=3000, seed=4)
+    R, t = synth.orbit_trajectory(n_frames=80, radius=3.0, arc=1.0)
+    out = []
+    for i in range(n):
+        f, _ = synth.render_features(world, R[i], t[i], cam, capacity=600, seed=100 + i,
+                                     device="cpu")
+        uv, desc = wire_arrays(f)
+        pkt = wire.decode_frame(wire.encode_frame(i, round(0.05 * i * 1e9), uv, desc))
+        out.append(slam.track_edge(0, pkt))
+    return slam, out
+
+
+@pytest.mark.cuda
+def test_track_edge_on_the_card_equals_the_cpu(cuda):
+    """A few wire packets through `Slam.track_edge` on the card against the
+    CPU: the same frames posed, poses within 1e-4."""
+    _, ref = _edge_session("cpu")
+    _, got = _edge_session(cuda)
+    assert [p is None for p in got] == [p is None for p in ref]
+    assert any(p is not None for p in got)
+    for g, r in zip(got, ref):
+        if r is not None:
+            assert np.abs(g[0] - r[0]).max() <= 1e-4 and np.abs(g[1] - r[1]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_atlas_round_trip_of_a_card_slam(cuda, tmp_path):
+    """A `Slam` on the card saves its atlas; a fresh one on the card loads
+    it with every array equal; the CPU loads it too."""
+    from orbslam3_tpu_torch.engine.system import Slam, SystemConfig
+    from orbslam3_tpu_torch.slam_map import serialize
+    from orbslam3_tpu_torch.slam_map.map_state import MapConfig
+    slam, _ = _edge_session(cuda)
+    path = str(tmp_path / "atlas.npz")
+    slam.save_atlas(path)
+    back = Slam(slam.camera, SystemConfig(map=MapConfig(32, 4096, 600)), load_atlas_from=path,
+                device=cuda)
+    cpu = serialize.load_atlas(path, device="cpu")
+    for mid, m in slam.atlas.maps.items():
+        for name, arr in vars(m).items():
+            if isinstance(arr, np.ndarray):
+                assert np.array_equal(getattr(back.atlas.maps[mid], name), arr), (mid, name)
+                assert np.array_equal(getattr(cpu.maps[mid], name), arr), (mid, name)
+    assert back.atlas.maps[0].device == torch.device(cuda)

@@ -25,6 +25,9 @@ SLICE_C = ("vision.stereo", "vision.rectify", "config")
 # the modules of the place-recognition / loop-closing slice
 SLICE_E = ("place", "place.vocab", "place.database", "vision.pnp", "vision.sim3",
            "opt.pose_graph", "engine.global_ba", "engine.loop_closing")
+# persistence, the edge server and its app, asynchronous mapping
+SLICE_FH = ("slam_map.serialize", "engine.async_engine", "native", "edge", "edge.wire",
+            "edge.acoustic", "edge.server", "edge.client_sim", "apps", "apps.edge_server")
 
 _CHILD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -54,8 +57,10 @@ print(" ".join(names))
 
 
 def _sources():
-    return sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [
+    sources = sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_frontend.py")]
+    assert ROOT / "orbslam3_tpu_torch" / "apps" / "edge_server.py" in sources
+    return sources
 
 
 def test_port_imports_with_jax_blocked():
@@ -64,9 +69,9 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 51  # every module of slices A, B, C, D and E
-    assert {f"orbslam3_tpu_torch.{m}" for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E} \
-        <= imported
+    assert len(imported) >= 61  # every module of slices A-F and H
+    assert {f"orbslam3_tpu_torch.{m}"
+            for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E + SLICE_FH} <= imported
 
 
 def test_no_jax_import_in_sources():

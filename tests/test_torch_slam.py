@@ -108,24 +108,29 @@ def test_timing_stages_and_counts():
 CAM = Camera.pinhole(229.3, 228.6, 183.6, 124.2, width=376, height=240, device="cpu")
 
 
-# what each case asks for, and the slice that still owns it
+# what each case asks for; the slice that ported the last of it
 UNPORTED = {"vocab": "F", "atlas": "F", "stereo": "F", "imu": "F", "async": "B",
             "track_stereo": "H", "track_imu": "F", "localization": "F", "tracker_bf": "H",
             "tracker_rectify": "F", "track_features_imu": "H"}
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
-def test_unported_parts_raise(what):
-    """What is not ported raises NotImplementedError naming its slice. The
-    cases that asked for slice E (the vocabulary, loop closing,
-    relocalization, localization mode, `merge_inertial_ba`) now build and
-    run that part on their sensor, then check what still raises there:
-    loading or saving an atlas (slice F) and the edge server's features
-    (slice H). tests/test_torch_place.py, test_torch_loop.py and
-    test_torch_reloc_merge.py hold slice E to the JAX package."""
+def test_unported_parts_raise(what, tmp_path):
+    """Each case once asked for a part that was not ported and raised
+    NotImplementedError naming its slice. Every part is ported now (slice
+    E: the vocabulary, loop closing, relocalization, localization mode,
+    `merge_inertial_ba`; F: atlas load and save; H: `track_edge`; B's
+    async mapping), so each case builds its `Slam` on its sensor and runs
+    the part: loading an atlas (the maps and the database rows come back),
+    saving one (it loads back with the same arrays), `track_edge` with a
+    real wire packet (the lane takes the frame), `async_mapping=True` (the
+    worker runs and stops). tests/test_torch_persist.py, test_torch_edge.py
+    and test_torch_async.py hold these parts to the JAX package."""
+    from orbslam3_tpu_torch.edge import wire
     from orbslam3_tpu_torch.engine.tracking import Tracker
     from orbslam3_tpu_torch.imu.preintegration import ImuCalib
     from orbslam3_tpu_torch.place.vocab import build_vocabulary
+    from orbslam3_tpu_torch.slam_map import serialize
     from orbslam3_tpu_torch.slam_map.map_state import MapState
     from orbslam3_tpu_torch.vision.rectify import RectifyMaps
     cfg = SystemConfig()
@@ -135,7 +140,19 @@ def test_unported_parts_raise(what):
         kw["vocab"] = build_vocabulary(np.random.default_rng(0).integers(
             0, 2 ** 32, (200, 8), dtype=np.uint32), k=4, depth=2)
     if what in ("vocab", "atlas", "imu", "tracker_rectify"):
-        kw["load_atlas_from"] = "atlas.npz"
+        # an atlas with one keyframe, saved by a plain session
+        src = Slam(CAM, SystemConfig(), vocab=kw.get("vocab"), device="cpu")
+        m = src.atlas.active
+        m.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0.5, 3,
+                       np.zeros((m.cfg.features_per_frame, 2), np.float32),
+                       np.zeros(m.cfg.features_per_frame, np.int32),
+                       np.zeros(m.cfg.features_per_frame, np.float32),
+                       np.random.default_rng(1).integers(
+                           0, 2 ** 32, (m.cfg.features_per_frame, 8), dtype=np.uint32),
+                       np.ones(m.cfg.features_per_frame, bool),
+                       np.full(m.cfg.features_per_frame, -1, np.int32))
+        src.save_atlas(str(tmp_path / "atlas.npz"))
+        kw["load_atlas_from"] = str(tmp_path / "atlas.npz")
     if what in ("stereo", "track_stereo", "tracker_bf"):
         cfg.sensor, cfg.tracker = Sensor.STEREO, TrackerConfig(bf=40.0)
     elif what in ("imu", "track_imu", "track_features_imu"):
@@ -155,22 +172,42 @@ def test_unported_parts_raise(what):
         tr = Tracker(CAM, MapState(MapConfig(), device="cpu"), TrackerConfig(bf=40.0),
                      relocalizer=lambda feats: None, device="cpu")
         assert tr.relocalizer is not None
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP slice {UNPORTED[what]}, not yet ported"):
-        slam = Slam(CAM, cfg, device="cpu", **kw)
-        if "vocab" in kw:
-            assert slam.loop_closer.cfg.fix_scale == (cfg.sensor != Sensor.MONOCULAR)
-        if what in ("localization", "track_stereo"):
-            slam.activate_localization_mode()
-            assert slam.trackers[0].only_tracking
-        if what == "track_features_imu":
-            assert merge_inertial_ba(slam.atlas.active, cfg.imu_calib, CAM, 0, 1) is None
-        if what in ("track_stereo", "tracker_bf", "track_features_imu"):
-            slam.track_edge(0, None)
-        elif what == "localization":
-            slam.shutdown(save_atlas_to="atlas.npz")
-        else:
-            slam.save_atlas("atlas.npz")
+    slam = Slam(CAM, cfg, device="cpu", **kw)
+    assert UNPORTED[what] in "BEFH"
+    if "vocab" in kw:
+        assert slam.loop_closer.cfg.fix_scale == (cfg.sensor != Sensor.MONOCULAR)
+    if "load_atlas_from" in kw:
+        assert sorted(slam.atlas.maps) == [0, 1] and slam.atlas.active_id == 1
+        assert slam.atlas.maps[0].n_keyframes == 1
+        if slam.db is not None:
+            assert slam.db.row_for(0, 0) is not None
+    if what in ("localization", "track_stereo"):
+        slam.activate_localization_mode()
+        assert slam.trackers[0].only_tracking
+    if what == "track_features_imu":
+        assert merge_inertial_ba(slam.atlas.active, cfg.imu_calib, CAM, 0, 1) is None
+    if what == "async":
+        assert slam._backend.backend.alive
+    out = tmp_path / "saved.npz"
+    if what in ("track_stereo", "tracker_bf", "track_features_imu"):
+        rng = np.random.default_rng(2)
+        pkt = wire.decode_frame(wire.encode_frame(
+            0, 10 ** 9, rng.uniform(0, 376, (50, 2)), rng.integers(0, 256, (50, 32),
+                                                                     dtype=np.uint8),
+            [999_000_000], [[0, 0, 0]], [[0, 0, 9.81]]))
+        assert slam.track_edge(0, pkt) is None  # one frame does not initialize
+        assert slam.trackers[0].frame_id == 1
+        slam.save_atlas(str(out))
+    elif what == "localization":
+        slam.shutdown(save_atlas_to=str(out))
+    else:
+        slam.save_atlas(str(out))
+    back = serialize.load_atlas(str(out), vocab=kw.get("vocab"), device="cpu")
+    for mid, m in slam.atlas.maps.items():
+        assert np.array_equal(back.maps[mid].kf_desc, m.kf_desc)
+    slam.shutdown()
+    if what == "async":
+        assert not slam._backend.backend.alive
 
 
 def test_entry_points_default_to_the_card():

@@ -187,18 +187,21 @@ def test_merge_inertial_ba_raises():
 
 
 @pytest.mark.parametrize("sensor", [Sensor.IMU_STEREO, Sensor.IMU_RGBD])
-def test_other_inertial_sensors_raise(sensor):
+def test_other_inertial_sensors_raise(sensor, tmp_path):
     """Stereo- and RGB-D-inertial SLAM run with a vocabulary: loop closing
-    with a fixed scale and the inertial gauge. What still raises on them is
-    saving an atlas (slice F) and a missing IMU calibration."""
+    with a fixed scale and the inertial gauge, and saving an atlas (slice
+    F, which a fresh `Slam` of the sensor loads with its database). What
+    still raises on them is a missing IMU calibration."""
     from orbslam3_tpu_torch.place.vocab import build_vocabulary
     voc = build_vocabulary(np.random.default_rng(0).integers(0, 2 ** 32, (200, 8),
                                                              dtype=np.uint32), k=4, depth=2)
     slam = Slam(TCAM, SystemConfig(sensor=sensor, imu_calib=TCAL), vocab=voc, device="cpu")
     assert slam.loop_closer.cfg.fix_scale and slam.loop_closer.cfg.inertial
     assert slam.trackers[0].relocalizer is not None and slam.trackers[0].bow_k == 4
-    with pytest.raises(NotImplementedError, match="slice F"):
-        slam.save_atlas("atlas.npz")
+    slam.save_atlas(str(tmp_path / "atlas.npz"))
+    back = Slam(TCAM, SystemConfig(sensor=sensor, imu_calib=TCAL), vocab=voc,
+                load_atlas_from=str(tmp_path / "atlas.npz"), device="cpu")
+    assert sorted(back.atlas.maps) == [0, 1] and back.atlas.active_id == 1
     with pytest.raises(ValueError, match="needs SystemConfig.imu_calib"):
         Slam(TCAM, SystemConfig(sensor=sensor), device="cpu")
 
