@@ -25,7 +25,8 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   tracked share, the metric ATE (no scale alignment), the keyframe scale
   and the gravity tilt against the rendered truth and the JAX package's
   run on the same images, the kernels' launches, and a plain-kernel rerun
-  that must launch no kernel and agree;
+  of the first 60 frames (past the IMU init) that must launch no kernel
+  and agree with the kernel run's state after them;
 - stereo SLAM (`Slam.track_stereo`) over 40 raw pairs of EuRoC's
   distorted, rotated stereo rig along the mono orbit, rectified on the
   card; RGB-D SLAM (`Slam.track_rgbd`) over 40 frames with uint16 depth
@@ -35,7 +36,8 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   `Settings`, is held to the JAX package's run on the same inputs
   (init frame, tracked share, metric ATE; the IMU ladder's stage), counts
   K1's launches under the `stereo` policy (once a frame) and K2's (twice
-  a frame on a pair), and is rerun through the plain versions;
+  a frame on a pair), and is rerun through the plain versions (the
+  stereo-inertial run over its first 60 frames, as the mono-inertial);
 - mono SLAM with the shipped vocabulary (`Slam(vocab=...)`, loop closing
   on, global BA inline) over four rendered sessions (`loop_sequences`):
   an orbit past 2 pi whose closing views return to the opening ones (a
@@ -65,6 +67,19 @@ features, 8 levels, x1.2; 2048 map-point candidates):
 - mono SLAM with async mapping: the mono phase's frames with
   `async_mapping=True`, held to the mono bounds, its ms/frame beside the
   synchronous run's.
+- the distributed back end: the mono phase's map through `map_to_blocks`
+  -> `serialize_block` -> `deserialize_block` -> `blocks_to_map` (every
+  valid row back, uids and flags too; points added afterwards take fresh
+  uids); the landmark-sharded BA (`make_sharded_ba`) at world size 1 over
+  NCCL on the card on that map's whole problem, held to the same call over
+  gloo on the CPU (1e-4) and to `bundle_adjust` (R 2e-3, t 5e-3), with its
+  ms per iteration; then the two-process app
+  (`orbslam3_tpu_torch.apps.multihost`, the JAX app's defaults: 120
+  frames, 1500 points, 8 BA iterations) with both ranks on the card over
+  gloo, rank 0 in this process and rank 1 in its own with a deadline: both
+  join a group of 2, rank 0 welds rank 1's map and its merged-map ATE
+  stays within 3x the JAX package's on the same arguments, K1 runs under
+  four policies in both ranks and is exact on rank 0's inputs.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
@@ -87,8 +102,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -100,14 +117,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from orbslam3_tpu_torch import _build
+from orbslam3_tpu_torch import _build, convert
 from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.config import Settings
 from orbslam3_tpu_torch.datasets.render import (BoxScene, imu_batches, orbit_sequence,
                                                 orbit_stereo_sequence, orbit_views, rgbd_sequence,
                                                 stereo_extrinsics, vi_sequence)
+from orbslam3_tpu_torch.apps import multihost as multihost_app
 from orbslam3_tpu_torch.apps.edge_server import fuse_acoustic
+from orbslam3_tpu_torch.distributed import map_blocks, multihost, sharded_ba
+from orbslam3_tpu_torch.distributed import mesh as dist_mesh
 from orbslam3_tpu_torch.edge import acoustic, wire
 from orbslam3_tpu_torch.edge.client_sim import FakePhone
 from orbslam3_tpu_torch.edge.server import (K_TRACK, N_FEATURES_INIT, N_FEATURES_TRACKING,
@@ -122,6 +142,7 @@ from orbslam3_tpu_torch.evaluation import aligned_pose_errors, ate_rmse, vi_metr
 from orbslam3_tpu_torch.imu.preintegration import ImuCalib
 from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
+from orbslam3_tpu_torch.opt.ba import bundle_adjust
 from orbslam3_tpu_torch.place.vocab import load_default_vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
@@ -192,6 +213,10 @@ VI_REFERENCE = dict(iba_stage=2, ate_metric=0.014848, kf_scale=0.99721,
                     gravity_tilt_deg=0.408)
 VI_ATE_MARGIN = 3.0       # other RANSAC draws and summation orders, as above
 VI_SCALE_FLOOR = 0.05     # |s - 1| bound: max(this, 2x the JAX package's)
+# The two inertial phases rerun their first 60 frames, not all 120, through
+# the plain versions (past the IMU init at frames 40-42, before VIBA1), to
+# keep the script near 1000 s of command time with the distributed phase
+PLAIN_PREFIX = 60
 
 # Stereo and RGB-D: the settings are parsed from these YAML texts by the
 # port's `Settings` (the card's machine has no PyYAML). EuRoC's raw pair as
@@ -421,6 +446,27 @@ TUMVI_CAM1 = (190.44236969414825, 190.4344384721956, 252.59949716835982, 254.917
               0.0034003170790442797, 0.001766278153469831, -0.00266312569781606,
               0.0003299517423931039)
 FISHEYE_SIZE, FISHEYE_FEATURES = 512, 1000
+# The distributed phase: the sharded BA at world size 1 on the mono phase's
+# map (every keyframe and point, the first keyframe fixed), NCCL on the
+# card against gloo on the CPU and against bundle_adjust with
+# tests/test_sharded_ba.py's bounds; then the two-process app at the JAX
+# app's defaults (apps/run_multihost.py: 120 frames, 1500 points, 500
+# features at 640x480, 8 BA iterations), both ranks on the one card over
+# gloo (NCCL refuses two ranks on one device). Its bound comes from the JAX
+# package on the CPU with the same arguments
+# (python scripts/port_multihost_reference.py): two segments of 9
+# keyframes (607 and 684 points), 18 keyframes welded, 1291 points, 5052
+# observations, cost 669.40 -> 635.52, merged-map keyframe ATE 170.198 mm.
+# The merged map is poor by design: each session has its own monocular
+# gauge and the weld takes the identity Sim3.
+SHARDED_ITERS = 8
+SHARDED_CPU_TOL = 1e-4          # R entries and t: NCCL on the card against gloo on the CPU
+SHARDED_BA_TOL = (2e-3, 5e-3)   # R, t against bundle_adjust (tests/test_sharded_ba.py)
+MULTIHOST_ARGS = ("--n-frames", "120", "--n-points", "1500", "--ba-iters", "8")
+MULTIHOST_REFERENCE = dict(ate_mm=170.198, welded_kfs=18)
+MULTIHOST_ATE_MARGIN = 3.0
+MULTIHOST_WAIT_S = 300.0        # deadline of rank 1's process after rank 0 returns
+MULTIHOST_POLICIES = ("tracker", "init", "triangulation", "fuse")
 
 FRAMES = 10
 KERNEL_ITERS = 200
@@ -1465,7 +1511,7 @@ def check_edge_agree(run: dict, plain: dict) -> None:
 
 
 def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None,
-              async_mapping: bool = False) -> dict:
+              async_mapping: bool = False, snapshot_at: int | None = None) -> dict:
     """`run_slam` of `Slam.track_monocular` with the tracker's defaults at
     the operating point; with `imu` the sensor is IMU_MONOCULAR at the
     shortened ladder cadence; `async_mapping` maps on the worker thread."""
@@ -1475,7 +1521,8 @@ def mono_slam(imgs, stamps, camera: Camera, plain: bool = False, imu=None,
     if imu is not None:
         cfg.sensor, cfg.imu_calib = Sensor.IMU_MONOCULAR, ImuCalib.create()
         cfg.mapper = LocalMapperConfig(**VI_CADENCE)
-    return run_slam(camera, cfg, [(im,) for im in imgs], stamps, plain=plain, imu=imu)
+    return run_slam(camera, cfg, [(im,) for im in imgs], stamps, plain=plain, imu=imu,
+                    snapshot_at=snapshot_at)
 
 
 def settings_config(text: str, sensor: str):
@@ -1492,7 +1539,7 @@ def settings_config(text: str, sensor: str):
 
 
 def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
-             depth_factor: float = 1.0) -> dict:
+             depth_factor: float = 1.0, snapshot_at: int | None = None) -> dict:
     """The sensor's `Slam.track_*` over the frames on the card (`frames`:
     per frame (image,), (left, right) or (image, depth)), launch counters
     set to 0 just before and read just after. The kernel run also keeps
@@ -1545,6 +1592,8 @@ def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
                 for stage in (1, 2):
                     if m.iba_stage >= stage and f"viba{stage}" not in events:
                         events[f"viba{stage}"] = i
+                if i + 1 == snapshot_at:
+                    snapshot = slam_state(slam, tracked, events)
             slam.flush()  # the mapping worker's queue, with async mapping
             torch.cuda.synchronize()
             launches = _build.snapshot()
@@ -1562,11 +1611,48 @@ def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
                launches=launches, frame_ms=frame_ms, kf_ms=kf_ms, stages=timing.stats(),
                events=events, imu_initialized=m.imu_initialized, iba_stage=m.iba_stage,
                map=m, log=[e["event"] for e in slam.events])
+    if snapshot_at is not None:
+        out["snapshot"] = snapshot
     if not plain:
         out["k1_inputs"] = {kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
                             for (a, b, mk), kw in k1_calls}
         out["k2_input"] = k2_calls[0][0]
     return out
+
+
+def slam_state(slam, tracked, events) -> dict:
+    """What a plain rerun over a prefix of the frames is held to: the init
+    frame, the events so far, the map's stage and counts, and its keyframe
+    centres, read after the prefix's last frame."""
+    m = slam.trackers[0].map
+    kfs = m.keyframe_ids()
+    return dict(frames=len(tracked), init=tracked.index(True) if any(tracked) else -1,
+                events=dict(events), iba_stage=m.iba_stage, keyframes=m.n_keyframes,
+                points=m.n_points,
+                kf_centres=np.einsum("kji,kj->ki", m.kf_R[kfs], -m.kf_t[kfs]))
+
+
+def check_prefix_agree(run: dict, plain: dict, path: str) -> None:
+    """A plain-kernel rerun over the first frames launched nothing and
+    agrees with the kernel run's state after the same frames: init frame,
+    events, `iba_stage`, keyframe and point counts, keyframe centres within
+    AGREE_CENTRE_TOL."""
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain-kernel {path} run launched kernels: "
+                             f"{json.dumps(plain['launches'], sort_keys=True)}")
+    a, b = run["snapshot"], plain["snapshot"]
+    same_shape = a["kf_centres"].shape == b["kf_centres"].shape
+    d_centre = float(np.abs(a["kf_centres"] - b["kf_centres"]).max()) if same_shape else np.inf
+    log(f"kernel vs plain {path} on the card over the first {b['frames']} frames: init "
+        f"frame {a['init']} vs {b['init']}, events {a['events']} vs {b['events']}, "
+        f"iba_stage {a['iba_stage']} vs {b['iba_stage']}, keyframes {a['keyframes']} vs "
+        f"{b['keyframes']}, points {a['points']} vs {b['points']}, max keyframe-centre diff "
+        f"{d_centre:.3e} m")
+    if (a["frames"] != b["frames"] or a["init"] != b["init"] or a["events"] != b["events"]
+            or a["iba_stage"] != b["iba_stage"] or a["keyframes"] != b["keyframes"]
+            or a["points"] != b["points"] or d_centre > AGREE_CENTRE_TOL):
+        raise AssertionError(f"kernel and plain {path} runs disagree over the first "
+                             f"{b['frames']} frames")
 
 
 def report_times(run: dict, smi: str, entry: str = "track_monocular") -> None:
@@ -1622,7 +1708,8 @@ def check_agree(run: dict, plain: dict, path: str) -> None:
 
 
 def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_gt,
-                reference: dict, smi: str, imu=None, depth_factor: float = 1.0) -> dict:
+                reference: dict, smi: str, imu=None, depth_factor: float = 1.0,
+                plain_frames: int | None = None) -> dict:
     """A stereo / RGB-D (-inertial) SLAM run on the card from settings
     parsed out of `yaml_text`, its checks against the rendered truth and
     the JAX package's `reference`, and its plain-kernel rerun."""
@@ -1632,7 +1719,8 @@ def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_
         f"{[round(float(v), 4) for v in camera.params[:4]]}, bf {cfg.tracker.bf:.4f}, "
         f"th_depth {cfg.tracker.th_depth}, rectified {cfg.tracker.rectify is not None}")
     t0 = time.perf_counter()
-    run = run_slam(camera, cfg, frames, stamps, imu=imu, depth_factor=depth_factor)
+    run = run_slam(camera, cfg, frames, stamps, imu=imu, depth_factor=depth_factor,
+                   snapshot_at=plain_frames)
     seconds = time.perf_counter() - t0
     m = run["map"]
     ks = m.keyframe_ids()
@@ -1677,9 +1765,16 @@ def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_
     if stereo and n_stereo != len(frames):
         raise AssertionError(f"{path}: K1 ran {n_stereo} times under the stereo policy "
                              f"over {len(frames)} frames")
-    plain = run_slam(camera, cfg, frames, stamps, plain=True, imu=imu,
-                     depth_factor=depth_factor)
-    check_agree(run, plain, path)
+    if plain_frames is None:
+        plain = run_slam(camera, cfg, frames, stamps, plain=True, imu=imu,
+                         depth_factor=depth_factor)
+        check_agree(run, plain, path)
+    else:
+        n = plain_frames
+        plain = run_slam(camera, cfg, frames[:n], stamps[:n], plain=True,
+                         imu=None if imu is None else imu[:n], depth_factor=depth_factor,
+                         snapshot_at=n)
+        check_prefix_agree(run, plain, path)
     return run
 
 
@@ -1791,6 +1886,187 @@ def check_async(arun: dict, sync_run: dict, R_gt, t_gt, stamps, smi: str) -> Non
     if not ate <= REFERENCE_ATE * ATE_MARGIN:
         raise AssertionError(f"async mapping: ATE {ate} m")
     check_policies(arun["launches"], SLAM_FRAMES, "async mono SLAM")
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def blocks_round_trip(m, device) -> None:
+    """A map through map_to_blocks -> serialize_block -> deserialize_block
+    -> blocks_to_map: every valid row back equal, uids and flags too; then
+    points added to the received map take uids no point holds."""
+    t0 = time.perf_counter()
+    wires = [map_blocks.serialize_block(b) for b in map_blocks.map_to_blocks(m)]
+    back = map_blocks.blocks_to_map([map_blocks.deserialize_block(w) for w in wires], m.cfg,
+                                    map_id=m.map_id, device=device)
+    seconds = time.perf_counter() - t0
+    kv, pv = m.kf_valid, m.mp_valid
+    if not (np.array_equal(back.kf_valid, kv) and np.array_equal(back.mp_valid, pv)):
+        raise AssertionError("map blocks: the valid rows differ")
+    for f in map_blocks._KF_FIELDS:
+        if not np.array_equal(getattr(back, f)[kv], getattr(m, f)[kv]):
+            raise AssertionError(f"map blocks: keyframe field {f} differs")
+    for f in map_blocks._MP_FIELDS + map_blocks._MP_EXTRA:
+        if not np.array_equal(getattr(back, f)[pv], getattr(m, f)[pv]):
+            raise AssertionError(f"map blocks: point field {f} differs")
+    if (back.imu_initialized, back.iba_stage, back._next_uid) != (
+            m.imu_initialized, m.iba_stage, m._next_uid):
+        raise AssertionError("map blocks: the map's flags or keyframe-uid counter differ")
+    g = np.random.default_rng(SEED + 5)
+    ids = back.add_points(pos=g.uniform(-1, 1, (16, 3)).astype(np.float32),
+                          desc=g.integers(0, 2 ** 32, (16, 8), dtype=np.uint32), first_kf=-1)
+    uids = back.mp_uid[back.mp_valid]
+    if (ids < 0).any() or len(np.unique(uids)) != len(uids):
+        raise AssertionError("map blocks: points added after the transfer reuse a uid")
+    log(f"map blocks: {m.n_keyframes} keyframes, {m.n_points} points in {len(wires)} blocks, "
+        f"{sum(map(len, wires))} bytes, serialized and reassembled in {seconds:.2f} s; every "
+        f"valid row equal; 16 points added, {len(uids)} uids all distinct")
+
+
+def sharded_ba_run(prob, camera, backend: str, device) -> dict:
+    """`make_sharded_ba` at world size 1 over `backend` on `device`: a
+    warm-up call, then one timed call (host wall clock, synchronized)."""
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+    try:
+        run = sharded_ba.make_sharded_ba(dist_mesh.make_mesh(device), camera,
+                                         n_iters=SHARDED_ITERS)
+        routed = sharded_ba.route_observations(
+            prob._replace(**{k: v.to(device) for k, v in prob._asdict().items()
+                             if v is not None}), 1)
+        run(routed)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, costs = run(routed)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SHARDED_ITERS
+    finally:
+        multihost.shutdown()
+    return dict(R=out.R.cpu(), t=out.t.cpu(), costs=costs.cpu(), ms=ms)
+
+
+def sharded_ba_check(m, camera: Camera, smi: str, backend: str = "nccl",
+                     device=torch.device("cuda")) -> None:
+    """The BA problem of map `m` with every keyframe and point: the sharded
+    BA at world size 1 over `backend` on `device`, against the same call
+    over gloo on the CPU and against `bundle_adjust` on `device`."""
+    prob = convert.ba_problem(multihost_app.merged_problem(m)[0], device="cpu")
+    M, P, O = len(prob.R), len(prob.points), len(prob.kf_idx)
+    card = sharded_ba_run(prob, camera.to(device), backend, device)
+    cpu = sharded_ba_run(prob, camera.to("cpu"), "gloo", torch.device("cpu"))
+    t0 = time.perf_counter()
+    ref, ref_costs, _ = bundle_adjust(prob._replace(**{
+        k: v.to(device) for k, v in prob._asdict().items() if v is not None}),
+        camera.to(device), n_iters=SHARDED_ITERS)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t0) * 1e3 / SHARDED_ITERS
+    d_cpu = max(float((card["R"] - cpu["R"]).abs().max()),
+                float((card["t"] - cpu["t"]).abs().max()))
+    d_R = float((card["R"] - ref.R.cpu()).abs().max())
+    d_t = float((card["t"] - ref.t.cpu()).abs().max())
+    costs = card["costs"]
+    log(f"sharded BA at world size 1 ({backend}, {device}) on the mono map: M {M} keyframes, "
+        f"P {P} points, {O} observations; cost {float(costs[0]):.3f} -> "
+        f"{float(costs[-1]):.3f} over {SHARDED_ITERS} iterations; {card['ms']:.2f} "
+        f"ms/iteration (host wall clock of one synchronized call over {SHARDED_ITERS}; "
+        f"gloo on the CPU {cpu['ms']:.2f}; bundle_adjust on {device} {ba_ms:.2f}; {smi}); "
+        f"against gloo on the CPU max |dR|,|dt| {d_cpu:.3e} (bound {SHARDED_CPU_TOL}); "
+        f"against bundle_adjust |dR| {d_R:.3e}, |dt| {d_t:.3e} m (bounds "
+        f"{SHARDED_BA_TOL[0]}, {SHARDED_BA_TOL[1]}); bundle_adjust cost "
+        f"{float(ref_costs[0]):.3f} -> {float(ref_costs[-1]):.3f}")
+    if not float(costs[-1]) <= float(costs[0]):
+        raise AssertionError(f"sharded BA: the cost rose, {costs.tolist()}")
+    if d_cpu > SHARDED_CPU_TOL:
+        raise AssertionError(f"sharded BA: {device} and the CPU differ by {d_cpu}")
+    if d_R > SHARDED_BA_TOL[0] or d_t > SHARDED_BA_TOL[1]:
+        raise AssertionError(f"sharded BA against bundle_adjust: dR {d_R}, dt {d_t}")
+
+
+def multihost_run(device: str = "cuda:0") -> dict:
+    """The two-process app on one card over gloo: rank 0 in this process
+    (its stdout captured, launch counters set to 0 just before and read
+    just after, the first K1 input of each matcher policy kept), rank 1 a
+    process of its own with a deadline, its counts read from its output."""
+    common = ["--coordinator", f"127.0.0.1:{free_port()}", "--map-port", str(free_port()),
+              *MULTIHOST_ARGS, "--device", device, "--backend", "gloo"]
+    out1 = tempfile.TemporaryFile("w+")
+    rank1 = subprocess.Popen([sys.executable, "-m", "orbslam3_tpu_torch.apps.multihost",
+                              "--process-id", "1", *common], stdout=out1,
+                             stderr=subprocess.STDOUT, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            k1_calls = stack.enter_context(capture(
+                hamming, "masked_top2", first_per(lambda args, kw: kw.get("policy"))))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            _build.launches.clear()
+            rc0 = multihost_app.main(["--process-id", "0", *common])
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            launches0 = _build.snapshot()
+        wall0 = time.perf_counter() - t0
+        rc1 = rank1.wait(timeout=MULTIHOST_WAIT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        if rank1.poll() is None:
+            rank1.kill()
+            rank1.wait()
+        out1.seek(0)
+        text1 = out1.read()
+        out1.close()
+    text0 = buf.getvalue()
+    for line in text0.splitlines():
+        log(f"rank 0: {line}")
+    for line in text1.splitlines():
+        if "socket.cpp" not in line:  # c10d's note that 127.0.0.1 has no hostname
+            log(f"rank 1: {line}")
+    got = [ln.split("launches: ", 1)[1] for ln in text1.splitlines() if "] launches: " in ln]
+    return dict(rc=(rc0, rc1), out=(text0, text1), wall0=wall0, wall=wall,
+                launches=(launches0, json.loads(got[0]) if got else None),
+                k1_inputs={kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
+                           for (a, b, mk), kw in k1_calls})
+
+
+def check_multihost(run: dict, smi: str, policies=MULTIHOST_POLICIES) -> None:
+    """Both ranks joined one group of 2, rank 0 welded and reported its
+    merged-map ATE within the bound, both printed their markers, K1 ran
+    under every policy in both ranks and is exact on rank 0's inputs."""
+    text0, text1 = run["out"]
+    ok = [ln for ln in text0.splitlines() if ln.startswith("MULTIHOST OK welded_kfs=")]
+    ate = float(ok[0].split("ate_mm=")[1]) if ok else float("nan")
+    welded = int(ok[0].split("welded_kfs=")[1].split()[0]) if ok else -1
+    bound = MULTIHOST_REFERENCE["ate_mm"] * MULTIHOST_ATE_MARGIN
+    log(f"two-process app on one card: exit codes {run['rc']}; rank 0 {run['wall0']:.1f} s, "
+        f"both {run['wall']:.1f} s (host wall clock, process start included; {smi}); "
+        f"{welded} keyframes after the weld (JAX package {MULTIHOST_REFERENCE['welded_kfs']}); "
+        f"merged-map ATE {ate:.3f} mm (bound {bound:.3f} mm = JAX package's "
+        f"{MULTIHOST_REFERENCE['ate_mm']} mm x {MULTIHOST_ATE_MARGIN}); launches rank 0 "
+        f"{json.dumps(run['launches'][0], sort_keys=True)}, rank 1 "
+        f"{json.dumps(run['launches'][1], sort_keys=True)}")
+    if run["rc"] != (0, 0):
+        raise AssertionError(f"the app's ranks exited with {run['rc']}")
+    if not ("[0] joined: 2 ranks" in text0 and "[1] joined: 2 ranks" in text1):
+        raise AssertionError("a rank did not print 'joined: 2'")
+    if "[0] welded" not in text0 or not ok or "MULTIHOST OK (worker)" not in text1:
+        raise AssertionError("the app did not weld, or a rank printed no MULTIHOST OK")
+    if not ate <= bound:
+        raise AssertionError(f"merged-map ATE {ate} mm over {bound} mm")
+    for rank, launches in enumerate(run["launches"]):
+        for pol in policies:
+            if (launches or {}).get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
+                raise AssertionError(f"K1 was not launched by the {pol} policy in rank {rank}")
+    for pol, (a, b, mask) in sorted(run["k1_inputs"].items()):
+        check_top2(hamming.masked_top2(a, b, mask),
+                   hamming.masked_top2_reference(a, b, mask), f"app {pol}")
+        log(f"K1 exact on the app's {pol} mask {tuple(mask.shape)}: "
+            f"{int(mask.sum())} candidates")
 
 
 def main() -> int:
@@ -1954,7 +2230,7 @@ def main() -> int:
         log(f"rendered {VI_FRAMES} frames at {W}x{H} with {len(seq.imu_ts)} IMU samples "
             f"in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        vi = mono_slam(seq.images, seq.frame_ts, camera, imu=batches)
+        vi = mono_slam(seq.images, seq.frame_ts, camera, imu=batches, snapshot_at=PLAIN_PREFIX)
         vi_seconds = time.perf_counter() - t0
         vi_launches = vi["launches"]
         m = vi["map"]
@@ -1997,22 +2273,10 @@ def main() -> int:
                                  f"{scale_bound}")
         check_policies(vi_launches, VI_FRAMES, "mono-inertial SLAM")
 
-        vplain = mono_slam(seq.images, seq.frame_ts, camera, plain=True, imu=batches)
-        if any(vplain["launches"].values()):
-            raise AssertionError(f"the plain-kernel VI run launched kernels: "
-                                 f"{json.dumps(vplain['launches'], sort_keys=True)}")
-        d_centre = max(float(np.abs(a[2] - b[2]).max())
-                       for a, b in zip(vi["poses"], vplain["poses"]))
-        log(f"kernel vs plain VI SLAM on the card: init frame {vinit} vs {vplain['init']}, "
-            f"IMU init {vi['events'].get('imu_init')} vs {vplain['events'].get('imu_init')}, "
-            f"iba_stage {vi['iba_stage']} vs {vplain['iba_stage']}, keyframes "
-            f"{vi['keyframes']} vs {vplain['keyframes']}, max camera-centre diff "
-            f"{d_centre:.3e} m")
-        if (vplain["init"] != vinit or vplain["events"].get("imu_init") != vi["events"].get("imu_init")
-                or vplain["iba_stage"] != vi["iba_stage"]
-                or vplain["keyframes"] != vi["keyframes"]
-                or len(vplain["poses"]) != len(vi["poses"]) or d_centre > AGREE_CENTRE_TOL):
-            raise AssertionError("kernel and plain VI SLAM runs disagree")
+        n = PLAIN_PREFIX
+        vplain = mono_slam(seq.images[:n], seq.frame_ts[:n], camera, plain=True,
+                           imu=batches[:n], snapshot_at=n)
+        check_prefix_agree(vi, vplain, "VI SLAM")
 
     (f0, d0), (f1, d1) = EUROC_CAM0, EUROC_CAM1
     with phase("stereo SLAM at full width"):
@@ -2044,7 +2308,8 @@ def main() -> int:
             f"{len(sv.imu_ts)} IMU samples in {time.perf_counter() - t0:.2f} s")
         sv_run = depth_phase("stereo-inertial SLAM", EUROC_STEREO_INERTIAL_YAML, "imu_stereo",
                              list(zip(sv.images, sv.images_right)), sv.frame_ts, sv.R_cw,
-                             sv.t_cw, STEREO_VI_REFERENCE, smi, imu=sv_batches)
+                             sv.t_cw, STEREO_VI_REFERENCE, smi, imu=sv_batches,
+                             plain_frames=PLAIN_PREFIX)
 
     with phase("mono SLAM with a vocabulary at full width"):
         t0 = time.perf_counter()
@@ -2084,6 +2349,12 @@ def main() -> int:
         check_async(arun, run, R_gt, t_gt, stamps, smi)
         del arun
 
+    with phase("distributed back end"):
+        blocks_round_trip(run["map"], dev)
+        sharded_ba_check(run["map"], camera, smi)
+        dist_run = multihost_run()
+        check_multihost(dist_run, smi)
+
     with phase("timings"):
         others = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
         if others:  # a launch from another thread would break the graph captures
@@ -2108,6 +2379,7 @@ def main() -> int:
             launches_vocab=voc["launches"].get(patch.KERNEL, 0),
             launches_edge={"server": edge["server"].get(patch.KERNEL, 0),
                            "phones": edge["phones"].get(patch.KERNEL, 0)},
+            launches_multihost=[r.get(patch.KERNEL, 0) for r in dist_run["launches"]],
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         # K1 at one captured mask of each policy: the mono run's four, the
         # stereo run's row band, and one fisheye pair's all-valid mask
@@ -2150,6 +2422,10 @@ def main() -> int:
                            "phones": edge["phones"].get(hamming.KERNEL, 0)},
             launches_by_policy_edge={pol: edge["server"].get(f"{hamming.KERNEL}[{pol}]", 0)
                                      for pol in EDGE_POLICIES + ("bow", "loop")},
+            launches_multihost=[r.get(hamming.KERNEL, 0) for r in dist_run["launches"]],
+            launches_by_policy_multihost=[{pol: r.get(f"{hamming.KERNEL}[{pol}]", 0)
+                                           for pol in MULTIHOST_POLICIES}
+                                          for r in dist_run["launches"]],
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

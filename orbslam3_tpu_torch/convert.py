@@ -14,6 +14,7 @@ import torch
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
+from orbslam3_tpu_torch.opt.ba import BAProblem
 from orbslam3_tpu_torch.place.vocab import Vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig, MapState
 from orbslam3_tpu_torch.vision.frame import FrameFeatures
@@ -59,6 +60,22 @@ def frame_features(uv, uv_raw, response, angle, octave, desc, valid,
         octave=tensor(octave, torch.int32, device),
         desc=tensor(words_to_int32(desc), torch.int32, device),
         valid=tensor(valid, torch.bool, device))
+
+
+def ba_problem(src, device=None) -> BAProblem:
+    """The port's `BAProblem` from a JAX `BAProblem` (or any object with its
+    fields as arrays): indices as int64, the stereo fields only where the
+    source has them."""
+    f32, b = torch.float32, torch.bool
+    opt = {k: None if getattr(src, k, None) is None else tensor(getattr(src, k), f32, device)
+           for k in ("u_r", "bf")}
+    return BAProblem(R=tensor(src.R, f32, device), t=tensor(src.t, f32, device),
+                     points=tensor(src.points, f32, device),
+                     kf_idx=tensor(src.kf_idx, torch.int64, device),
+                     lm_idx=tensor(src.lm_idx, torch.int64, device),
+                     uv=tensor(src.uv, f32, device), info=tensor(src.info, f32, device),
+                     valid=tensor(src.valid, b, device), fixed_kf=tensor(src.fixed_kf, b, device),
+                     fixed_lm=tensor(src.fixed_lm, b, device), **opt)
 
 
 def imu_calib(src, device=None) -> ImuCalib:

@@ -69,9 +69,16 @@ class ClientLane:
         self._alive = True
         self._closed = False
         self._lock = threading.Lock()
-        self._threads = [threading.Thread(target=self._receive_loop, daemon=True),
-                         threading.Thread(target=self._track_loop, daemon=True)]
-        for t in self._threads:
+        self._serving = (threading.Thread(target=self._receive_loop, daemon=True),
+                         threading.Thread(target=self._track_loop, daemon=True))
+        self._threads = list(self._serving)  # with the acoustic thread, once attached
+
+    def start(self):
+        """Start the receive and track threads. The owner calls it once the
+        lane is published in `EdgeServer.lanes`, so no frame is tracked, or
+        answered, by a lane the server cannot see (its acoustic connection
+        may be attached, and served, first)."""
+        for t in self._serving:
             t.start()
 
     # ------------------------------------------------------------ threads
@@ -152,6 +159,8 @@ class ClientLane:
 
     # ----------------------------------------------------------- acoustic
     def attach_acoustic(self, conn: socket.socket):
+        """Serve the lane's acoustic connection: published (`ac_conn`, and
+        its thread in `_threads` for `close`) before its thread starts."""
         self.ac_conn = conn
         conn.settimeout(POLL_S)
         t = threading.Thread(target=self._acoustic_loop, daemon=True)
@@ -229,7 +238,7 @@ class ClientLane:
                     pass
         deadline = time.monotonic() + timeout
         for t in self._threads:
-            if t is not threading.current_thread():
+            if t is not threading.current_thread() and t.ident is not None:  # started
                 t.join(max(0.0, deadline - time.monotonic()))
 
 
@@ -265,7 +274,9 @@ class EdgeServer:
                 continue
             except OSError:
                 break
-            self.lanes.append(ClientLane(len(self.lanes), conn, self))
+            lane = ClientLane(len(self.lanes), conn, self)
+            self.lanes.append(lane)  # published before it serves
+            lane.start()
 
     def _listen_acoustic(self):
         n = 0

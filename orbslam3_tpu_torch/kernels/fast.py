@@ -69,6 +69,12 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= mx, score, 0.0)
 
 
+def detect(img: torch.Tensor, ini_th: float = INI_TH, min_th: float = MIN_TH) -> torch.Tensor:
+    """Dual-threshold dense FAST + NMS -> response map (`detect_with_raw`'s
+    first result)."""
+    return detect_with_raw(img, ini_th, min_th)[0]
+
+
 def detect_with_raw(img: torch.Tensor, ini_th: float = INI_TH,
                     min_th: float = MIN_TH):
     """Dual-threshold dense FAST + NMS, plus the pre-NMS/pre-bonus response

@@ -115,6 +115,12 @@ def orientation_maps(img: torch.Tensor):
     return m10, m01
 
 
+def keypoint_angles(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Orientation angle (radians) per keypoint from the dense moment maps."""
+    m10, m01 = orientation_maps(img)
+    return torch.atan2(m01[ys, xs], m10[ys, xs])
+
+
 def brief_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                       angles: torch.Tensor) -> torch.Tensor:
     """Steered BRIEF: (N, 8) int32 packed 256-bit descriptors.

@@ -32,6 +32,8 @@ import torch
 from orbslam3_tpu_torch.core import lie, robust
 from orbslam3_tpu_torch.opt.pose_gn import stereo_rows, stereo_thresholds
 
+HUBER_MONO = robust.CHI2_MONO ** 0.5
+
 
 class BAProblem(NamedTuple):
     """COO bundle-adjustment problem over fixed-capacity tensors."""
@@ -98,6 +100,13 @@ def _damped(H: torch.Tensor, lam) -> torch.Tensor:
     """H + lam * diag(max(diag(H), 1e-6)) over a batch of square blocks."""
     return H + lam * torch.diag_embed(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
                                                   min=1e-6))
+
+
+def _block_diag_embed(blocks: torch.Tensor) -> torch.Tensor:
+    """(M, b, b) -> the (M b, M b) block-diagonal dense matrix."""
+    M, b = blocks.shape[0], blocks.shape[-1]
+    eye = torch.eye(M, dtype=blocks.dtype, device=blocks.device)
+    return torch.einsum("mab,mn->manb", blocks, eye).reshape(M * b, M * b)
 
 
 class Segment(NamedTuple):
@@ -173,9 +182,7 @@ def ba_normal_equations(prob: BAProblem, camera, lm_lambda, segs: Segments):
     col = (pair % P)[:, None, None] * 3 + torch.arange(3, device=dev)[None, None, :]
     Z[row, col] = _segment_sums(segs.pair, W_o @ T[prob.lm_idx])
 
-    eyeM = torch.eye(M, dtype=dtype, device=dev)
-    Hpp_block = torch.einsum("mab,mn->manb", Hpp_d, eyeM).reshape(6 * M, 6 * M)
-    S = Hpp_block - Z @ Z.T
+    S = _block_diag_embed(Hpp_d) - Z @ Z.T
     y = torch.einsum("pab,pb->pa", T.transpose(-1, -2), b_l)  # T^T b_l
     b_schur = b_p.reshape(-1) - Z @ y.reshape(-1)
 

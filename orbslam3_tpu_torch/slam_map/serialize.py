@@ -9,6 +9,10 @@ config fingerprint and the vocabulary fingerprint in a `__meta__` JSON
 blob. The format is the JAX package's (FORMAT_VERSION 1), so an atlas
 written by either package loads in the other.
 
+The port also saves each map's point-uid counter (`_next_mp_uid`); on a
+file without it the loader takes the largest stored uid plus one, so the
+points a loaded map gains never reuse a uid.
+
 Loading restores the saved maps as stored maps and spawns a fresh active
 map on top (ORB-SLAM3's warm-start localization). What is not an array
 (the keyframes' preintegrations `kf_pre`, the lock, the observers) is not
@@ -28,8 +32,10 @@ from orbslam3_tpu_torch.slam_map.map_state import MapConfig, MapState
 
 FORMAT_VERSION = 1
 
-_MAP_SCALARS = ('_next_uid', 'change_index', 'imu_initialized', 'iba_stage',
-                'map_id')
+# `_next_mp_uid` is the port's: the JAX package saves no point-uid counter,
+# and its loader sets every scalar it finds, so it reads the port's files
+_MAP_SCALARS = ('_next_uid', '_next_mp_uid', 'change_index', 'imu_initialized',
+                'iba_stage', 'map_id')
 
 
 def _map_arrays(m: MapState) -> dict[str, np.ndarray]:
@@ -104,8 +110,11 @@ def load_atlas(path: str, vocab=None, check_vocab: bool = True, device=None) -> 
                 key = f'map{mid}/{name}'
                 if key in z:
                     getattr(m, name)[...] = z[key]
-            for s, v in meta['map_scalars'][str(mid)].items():
+            scalars = meta['map_scalars'][str(mid)]
+            for s, v in scalars.items():
                 setattr(m, s, v)
+            if '_next_mp_uid' not in scalars:  # a file of the JAX package's
+                m._next_mp_uid = int(m.mp_uid.max()) + 1
             atlas.maps[int(mid)] = m
         atlas._next_map_id = int(meta['next_map_id'])
         atlas.create_new_map()

@@ -129,6 +129,20 @@ def test_huber_weight_matches_jax():
                                                         jrobust.CHI2_STEREO)
 
 
+@pytest.mark.parametrize("name", ["cauchy_weight", "tukey_weight"])
+@pytest.mark.parametrize("delta", [jrobust.CHI2_MONO ** 0.5, 1.0])
+def test_cauchy_and_tukey_weights_match_jax(name, delta):
+    """Both sides are the same f32 formula; rtol 1e-6, and Tukey's zero
+    beyond delta exact."""
+    rng = np.random.default_rng(7)
+    e2 = np.concatenate([[0.0, delta * delta, 1e-30],
+                         rng.exponential(5.0, 200)]).astype(np.float32)
+    got = np_(getattr(trobust, name)(t32(e2), delta))
+    ref = np_(getattr(jrobust, name)(jnp.asarray(e2), delta))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got == 0, ref == 0)
+
+
 def test_camera_default_device_is_the_card():
     """No device argument means CUDA; without a card that raises rather
     than falling back to the CPU."""

@@ -16,6 +16,7 @@ import torch
 from orbslam3_tpu.kernels import image as jimage
 from orbslam3_tpu.kernels import orb_descriptor as jdesc
 from orbslam3_tpu.kernels import patch_pallas
+from orbslam3_tpu_torch.kernels import fast as tfast
 from orbslam3_tpu_torch.kernels import image as timage
 from orbslam3_tpu_torch.kernels import orb_descriptor as tdesc
 from orbslam3_tpu_torch.kernels import patch as tpatch
@@ -77,6 +78,21 @@ def test_orientation_maps_match_jax():
     scale = np.abs(np_(m10_j)).max()
     np.testing.assert_allclose(np_(m10_t), np_(m10_j), atol=1e-5 * scale)
     np.testing.assert_allclose(np_(m01_t), np_(m01_j), atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("seed", [2, 8])
+def test_keypoint_angles_match_jax(seed):
+    """At the FAST keypoints of a textured image (borders included); the
+    moments agree to 1e-5 relative, so the angles agree within 1e-4 rad
+    (compared on the circle)."""
+    img = textured_image(seed, 96, 128)
+    ys, xs, _, valid = tfast.select_uniform(tfast.detect(t32(img)), 200, cell=16)
+    ys, xs = ys[valid], xs[valid]
+    got = np_(tdesc.keypoint_angles(t32(img), ys, xs))
+    ref = np_(jdesc.keypoint_angles(jnp.asarray(img), jnp.asarray(np_(ys)),
+                                    jnp.asarray(np_(xs))))
+    assert len(ref) > 50
+    np.testing.assert_allclose(np.angle(np.exp(1j * (got - ref))), 0.0, atol=1e-4)
 
 
 def _patch_inputs(seed, H=256, W=384, N=24):

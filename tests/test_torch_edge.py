@@ -379,6 +379,31 @@ def test_a_malformed_packet_is_dropped_and_the_lane_kept():
         srv.close()
 
 
+class _SlowList(list):
+    """A lane list whose `append` lands 0.5 s late: a lane that served
+    before it was published tracks its first frame inside that gap."""
+
+    def append(self, item):
+        time.sleep(0.5)
+        super().append(item)
+
+
+def test_a_lane_is_published_before_it_tracks():
+    seen = []
+    srv = EdgeServer(lambda cid, pkt: seen.append(len(srv.lanes)) or None, slam_port=0,
+                     acoustic_port=0, max_clients=1)
+    srv.lanes = _SlowList()  # before any phone connects
+    ph = FakePhone("127.0.0.1", srv.slam_port, None, 0)
+    try:
+        ph.send_frame(0, 1, np.zeros((2, 2), np.float32), np.zeros((2, 32), np.uint8))
+        assert ph.wait_replies(1, 10.0)
+        assert seen == [1]
+    finally:
+        ph.close()
+        srv.close()
+    assert not any(t.is_alive() for ln in srv.lanes for t in ln._threads)
+
+
 # -------------------------------------------------- track_edge, lockstep
 EDGE_FEATURES = 600
 # phone 0's frames 0-18, then phone 1 (frame ids 3-6: ids 3 and 4 fall to

@@ -91,6 +91,12 @@ def test_detect_with_raw_and_nms_are_exact(img):
     np.testing.assert_array_equal(np_(s_t), np_(s_j))
 
 
+@pytest.mark.parametrize("ini_th,min_th", [(jfast.INI_TH, jfast.MIN_TH), (30.0, 12.0)])
+def test_detect_is_exact(img, ini_th, min_th):
+    np.testing.assert_array_equal(np_(tfast.detect(t32(img), ini_th, min_th)),
+                                  np_(jfast.detect(jnp.asarray(img), ini_th, min_th)))
+
+
 def test_nms3_with_plateaus():
     """Equal neighbours all survive (>=), as in the reference."""
     rng = np.random.default_rng(1)

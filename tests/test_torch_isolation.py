@@ -28,6 +28,10 @@ SLICE_E = ("place", "place.vocab", "place.database", "vision.pnp", "vision.sim3"
 # persistence, the edge server and its app, asynchronous mapping
 SLICE_FH = ("slam_map.serialize", "engine.async_engine", "native", "edge", "edge.wire",
             "edge.acoustic", "edge.server", "edge.client_sim", "apps", "apps.edge_server")
+# the distributed back end and its two-process app
+SLICE_G = ("distributed", "distributed.map_blocks", "distributed.host_exchange",
+           "distributed.mesh", "distributed.sharded_ba", "distributed.multihost",
+           "apps.multihost")
 
 _CHILD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -59,7 +63,9 @@ print(" ".join(names))
 def _sources():
     sources = sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_frontend.py")]
-    assert ROOT / "orbslam3_tpu_torch" / "apps" / "edge_server.py" in sources
+    for app in ("edge_server.py", "multihost.py"):
+        assert ROOT / "orbslam3_tpu_torch" / "apps" / app in sources
+    assert (ROOT / "orbslam3_tpu_torch" / "distributed" / "sharded_ba.py") in sources
     return sources
 
 
@@ -69,9 +75,9 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 61  # every module of slices A-F and H
+    assert len(imported) >= 68  # every module of slices A-H
     assert {f"orbslam3_tpu_torch.{m}"
-            for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E + SLICE_FH} <= imported
+            for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E + SLICE_FH + SLICE_G} <= imported
 
 
 def test_no_jax_import_in_sources():

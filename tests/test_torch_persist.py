@@ -14,7 +14,10 @@ all exact unless stated:
   "vocabulary fingerprint";
 - `Slam(load_atlas_from=...)` rebuilds a keyframe database with the JAX
   package's rows (words exact, weights rtol 1e-5) and scores (rtol 1e-5);
-- `save_atlas` and `shutdown(save_atlas_to=)` write the same arrays.
+- `save_atlas` and `shutdown(save_atlas_to=)` write the same arrays;
+- a loaded map's point-uid counter is the session's, from a file of
+  either package (the port saves it, and takes the largest stored uid
+  plus one from a JAX file), so points added after loading get fresh uids.
 """
 
 import numpy as np
@@ -64,7 +67,7 @@ def _same_atlas(a, b):
         for name in xa:
             assert xa[name].dtype == xb[name].dtype and np.array_equal(xa[name], xb[name]), \
                 (mid, name)
-        for s in tser._MAP_SCALARS:
+        for s in jser._MAP_SCALARS:  # the port adds `_next_mp_uid`, checked below
             assert getattr(ma, s) == getattr(mb, s), (mid, s)
 
 
@@ -232,3 +235,28 @@ def test_load_and_save_on_other_sensors(vocabs, jax_atlas, sensor, tmp_path):
         for name, arr in _arrays(m).items():
             assert np.array_equal(getattr(back.maps[mid], name), arr), (mid, name)
     assert bool(torch.all(slam.db.kf_words[sorted(slam.db._row.values())] >= -1))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_loaded_map_issues_fresh_point_uids(vocabs, jax_atlas, writer, tmp_path):
+    jv, tv = vocabs
+    slam, path = jax_atlas
+    session = slam.atlas.maps[0]
+    if writer == "port":
+        path = str(tmp_path / "port.npz")
+        tser.save_atlas(tser.load_atlas(jax_atlas[1], vocab=tv, device="cpu"), path, vocab=tv)
+        # the JAX package's loader sets the port's counter too
+        assert jser.load_atlas(path, vocab=jv).maps[0]._next_mp_uid == session._next_mp_uid
+    with np.load(path) as z:
+        meta = __import__("json").loads(bytes(z["__meta__"]).decode())
+    assert ("_next_mp_uid" in meta["map_scalars"]["0"]) == (writer == "port")
+    m = tser.load_atlas(path, vocab=tv, device="cpu").maps[0]
+    assert m._next_mp_uid == session._next_mp_uid > 0
+    n = m.n_points
+    rng = np.random.default_rng(3)
+    ids = m.add_points(pos=rng.uniform(-1, 1, (10, 3)).astype(np.float32),
+                       desc=random_words(rng, 10), first_kf=-1)
+    assert (ids >= 0).all() and m.n_points == n + 10
+    uids = m.mp_uid[m.mp_valid]
+    assert len(np.unique(uids)) == len(uids)
+    assert set(m.mp_uid[ids]) == set(range(session._next_mp_uid, session._next_mp_uid + 10))

@@ -7,6 +7,10 @@ when there is none; the decision is made inside the test run, never at
 import time.
 """
 
+import multiprocessing
+import socket
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -134,3 +138,61 @@ def window_mask(rng, n, m, width, height, radius=15.0):
 CASES = ["random_unaligned", "empty_rows", "dense_half", "ties", "single_column",
          "window", "all_true", "m15", "m16", "m17", "m511", "m513", "last_column",
          "wide"]
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(target, world: int, args: tuple, timeout: float = 120.0) -> None:
+    """Run `target(rank, world, coordinator, *args)` in `world` spawned
+    processes (gloo over tcp://coordinator) and wait at most `timeout`
+    seconds; a process still alive then is killed, and a rank that did not
+    exit with 0 fails the test. `target` lives in an importable module."""
+    ctx = multiprocessing.get_context("spawn")
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=target, args=(rank, world, coordinator, *args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"ranks exited with {codes} (None: killed at the deadline)"
+
+
+def sharded_ba_rank(rank, world, coordinator, in_path, out_path, entry, n_iters):
+    """One gloo rank of the port's sharded BA on the CPU: the problem
+    (numpy arrays and the pinhole parameters) from `in_path`; `entry` is
+    "routed" (`make_sharded_ba` on a problem routed for `world` shards) or
+    "global" (`multihost.global_ba`). Writes R, t, points and costs to
+    `out_path` % rank."""
+    torch.set_num_threads(1)
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.distributed import mesh, multihost, sharded_ba
+    from orbslam3_tpu_torch.opt.ba import BAProblem
+    multihost.initialize(coordinator, world, rank, backend="gloo")
+    try:
+        with np.load(in_path) as z:
+            prob = BAProblem(**{k: torch.as_tensor(z[k]) for k in BAProblem._fields[:10]})
+            cam = Camera.pinhole(*z["pinhole"], device="cpu")
+        if entry == "routed":
+            out, costs = sharded_ba.make_sharded_ba(mesh.make_mesh("cpu"), cam,
+                                                    n_iters=n_iters)(prob)
+            out = out._replace(R=out.R.numpy(), t=out.t.numpy(), points=out.points.numpy())
+            costs = costs.numpy()
+        else:
+            out, costs = multihost.global_ba(prob, cam, n_iters=n_iters, device="cpu")
+        np.savez(out_path % rank, R=out.R, t=out.t, points=out.points, costs=costs)
+    finally:
+        multihost.shutdown()
