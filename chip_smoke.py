@@ -25,7 +25,7 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   tracked share, the metric ATE (no scale alignment), the keyframe scale
   and the gravity tilt against the rendered truth and the JAX package's
   run on the same images, the kernels' launches, and a plain-kernel rerun
-  of the first 60 frames (past the IMU init) that must launch no kernel
+  of the first 45 frames (past the IMU init) that must launch no kernel
   and agree with the kernel run's state after them;
 - stereo SLAM (`Slam.track_stereo`) over 40 raw pairs of EuRoC's
   distorted, rotated stereo rig along the mono orbit, rectified on the
@@ -37,7 +37,7 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   (init frame, tracked share, metric ATE; the IMU ladder's stage), counts
   K1's launches under the `stereo` policy (once a frame) and K2's (twice
   a frame on a pair), and is rerun through the plain versions (the
-  stereo-inertial run over its first 60 frames, as the mono-inertial);
+  stereo-inertial run over its first 45 frames, as the mono-inertial);
 - mono SLAM with the shipped vocabulary (`Slam(vocab=...)`, loop closing
   on, global BA inline) over four rendered sessions (`loop_sequences`):
   an orbit past 2 pi whose closing views return to the opening ones (a
@@ -79,9 +79,23 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   gloo, rank 0 in this process and rank 1 in its own with a deadline: both
   join a group of 2, rank 0 welds rank 1's map and its merged-map ATE
   stays within 3x the JAX package's on the same arguments, K1 runs under
-  four policies in both ranks and is exact on rank 0's inputs.
+  four policies in both ranks and is exact on rank 0's inputs;
+- the dataset runners on sequences the port's writers put on disk and its
+  PNG codec reads back: `apps/run_euroc --imu --save-tum` over a 48-frame
+  EuRoC-layout sequence at 752x480 (the IMU initializes inside it,
+  `utils.timing.transfer_audit` around three tracked frames), `eval_ate`
+  on its saved trajectory (the same ATE), `run_euroc --tumvi --stereo
+  --imu` over 45 frames of a TUM-VI-layout KB8 fisheye pair at 512x512
+  (the first fisheye SLAM run; its first 20 frames again through the plain
+  versions), `run_rgbd` over 20 TUM RGB-D frames at 640x480, each held to
+  the JAX apps on the same files (init and IMU-init frames, `iba_stage`,
+  tracked share, metric ATE); `build_vocab` (K2 on the card) loaded back,
+  `opt_analy --mode all` against the CPU, and the codec's decode and
+  `resize_linear` times.
 
-Each path is driven with the launch counters set to 0 just before it and
+The phases' inputs are rendered ahead, in RENDER_WORKERS spawned
+processes, while the card runs the earlier phases; each phase logs how
+long it waited for its inputs. Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
 timings phase times both kernels by replaying a captured CUDA graph (so
 their device time is not hidden behind host launch overhead) at the inputs
@@ -102,9 +116,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import multiprocessing
 import io
 import json
 import os
+import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -112,6 +129,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -121,9 +139,11 @@ from orbslam3_tpu_torch import _build, convert
 from orbslam3_tpu_torch.core import lie
 from orbslam3_tpu_torch.core.camera import Camera
 from orbslam3_tpu_torch.config import Settings
+from orbslam3_tpu_torch.datasets import imageio, load_euroc
 from orbslam3_tpu_torch.datasets.render import (BoxScene, imu_batches, orbit_sequence,
                                                 orbit_stereo_sequence, orbit_views, rgbd_sequence,
                                                 stereo_extrinsics, vi_sequence)
+from orbslam3_tpu_torch.apps import build_vocab, eval_ate, opt_analy, run_euroc, run_rgbd
 from orbslam3_tpu_torch.apps import multihost as multihost_app
 from orbslam3_tpu_torch.apps.edge_server import fuse_acoustic
 from orbslam3_tpu_torch.distributed import map_blocks, multihost, sharded_ba
@@ -143,7 +163,7 @@ from orbslam3_tpu_torch.imu.preintegration import ImuCalib
 from orbslam3_tpu_torch.kernels import hamming, image, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
 from orbslam3_tpu_torch.opt.ba import bundle_adjust
-from orbslam3_tpu_torch.place.vocab import load_default_vocabulary
+from orbslam3_tpu_torch.place.vocab import Vocabulary, load_default_vocabulary
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.utils.synth import orbit_trajectory
@@ -213,10 +233,10 @@ VI_REFERENCE = dict(iba_stage=2, ate_metric=0.014848, kf_scale=0.99721,
                     gravity_tilt_deg=0.408)
 VI_ATE_MARGIN = 3.0       # other RANSAC draws and summation orders, as above
 VI_SCALE_FLOOR = 0.05     # |s - 1| bound: max(this, 2x the JAX package's)
-# The two inertial phases rerun their first 60 frames, not all 120, through
+# The two inertial phases rerun their first 45 frames, not all 120, through
 # the plain versions (past the IMU init at frames 40-42, before VIBA1), to
-# keep the script near 1000 s of command time with the distributed phase
-PLAIN_PREFIX = 60
+# keep the script near 930 s of phases with the runner phase
+PLAIN_PREFIX = 45
 
 # Stereo and RGB-D: the settings are parsed from these YAML texts by the
 # port's `Settings` (the card's machine has no PyYAML). EuRoC's raw pair as
@@ -467,6 +487,52 @@ MULTIHOST_REFERENCE = dict(ate_mm=170.198, welded_kfs=18)
 MULTIHOST_ATE_MARGIN = 3.0
 MULTIHOST_WAIT_S = 300.0        # deadline of rank 1's process after rank 0 returns
 MULTIHOST_POLICIES = ("tracker", "init", "triangulation", "fuse")
+
+# The runner phase: the dataset mains on sequences the port's writers put
+# on disk (`datasets/synth_euroc.py`, `datasets/tum_rgbd.py`), read back
+# through the port's PNG codec and loaders. The EuRoC layout at 752x480 with
+# the mono-inertial phase's trajectory (BoxScene.default(seed=3), a 3 m
+# orbit, 5 cm / 0.06 rad shake, 200 Hz IMU with noise) over 48 frames, so
+# the IMU initializes inside the run at the mapper's default 2 s; its arc
+# keeps the mono-inertial phase's 1/120 rad a frame. The TUM-VI layout:
+# TUM-VI cam0's KB8 focal lengths and distortion (the writer centres the
+# principal point at 256, 256) at 512x512 and 1000 features, a 0.101 m
+# baseline, the same trajectory at 20 Hz over 45 frames (the fisheye pair
+# tracks at ~1.5 s a frame on the card; the IMU initializes at frame ~40),
+# the ground truth under mocap0. The TUM RGB-D layout at TUM fr1's
+# 640x480, focal lengths and 1000 features (the writer's pinhole,
+# centred), 20 frames along the RGB-D phase's path. All three run with the apps' defaults (the shipped
+# vocabulary, the mapper's default IMU cadence).
+RUNNER_EUROC = dict(n_frames=48, width=W, height=H, fx=CAMERA[0], fy=CAMERA[1], seed=3,
+                    radius=3.0, arc=0.4, n_features=N_FEATURES, excitation=0.05,
+                    rot_excitation=0.06)
+RUNNER_TUMVI = dict(n_frames=45, width=FISHEYE_SIZE, height=FISHEYE_SIZE, fx=TUMVI_CAM0[0],
+                    fy=TUMVI_CAM0[1], fisheye=True, kb8_dist=TUMVI_CAM0[4:8],
+                    stereo_baseline=0.101, n_features=FISHEYE_FEATURES, seed=3, radius=3.0,
+                    arc=0.375, excitation=0.05, rot_excitation=0.06)
+RUNNER_TUM = dict(n_frames=20, width=TUM1_SIZE[1], height=TUM1_SIZE[0],
+                  fx=TUM1_INTRINSICS[0], fy=TUM1_INTRINSICS[1], n_features=1000, arc=0.5)
+RUNNER_PREFIX = 20          # frames of the fisheye run rerun through the plain versions
+# The JAX apps on the same files (CPU; python scripts/port_runner_reference.py,
+# which writes them with `write_runner_sequences`): EuRoC mono-inertial
+# initialized at frame 5, the IMU at frame 41, iba_stage 0, all 43 frames
+# from init tracked, 10 keyframes, 1219 points, metric ATE 0.011545 m;
+# TUM-VI fisheye stereo-inertial at frame 0, the IMU at frame 40, iba_stage
+# 0, all 45 tracked, 9 keyframes, 1254 points, metric ATE 0.004105 m;
+# TUM RGB-D at frame 0, all 20 tracked, 3 keyframes, 1129 points, metric
+# ATE 0.009564 m.
+RUNNER_REFERENCE = dict(
+    euroc=dict(init_frame=5, imu_init_frame=41, iba_stage=0, ate_metric=0.011545),
+    tumvi=dict(init_frame=0, imu_init_frame=40, iba_stage=0, ate_metric=0.004105),
+    tum=dict(init_frame=0, imu_init_frame=-1, iba_stage=0, ate_metric=0.009564))
+RUNNER_FRAME_TOL = 2        # frames: init and IMU init against the JAX apps'
+RUNNER_ATE_MARGIN = 3.0
+EVAL_ATE_TOL = 1e-5         # m: eval_ate reads the saved TUM file's 7 decimals
+RUNNER_AUDIT_FRAMES = (44, 45, 46)   # EuRoC frames tracked under transfer_audit
+FISHEYE_POLICIES = ("tracker", "fisheye_stereo", "triangulation", "fuse")
+OPT_ANALY_TOL = (0.1, 1e-2)  # abs (cm; calib's ratio and m), rel: the card against the CPU
+RESIZE_TO = ((640, 408), (376, 240))  # resize_linear timed per EuRoC frame (2x: INTER_AREA)
+RENDER_WORKERS = 3          # processes that render the phases' inputs ahead
 
 FRAMES = 10
 KERNEL_ITERS = 200
@@ -2069,11 +2135,282 @@ def check_multihost(run: dict, smi: str, policies=MULTIHOST_POLICIES) -> None:
             f"{int(mask.sum())} candidates")
 
 
+def timed_call(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), seconds), for a render in a worker process."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def start_renders(runner_root: str):
+    """Every phase's input rendered ahead, in RENDER_WORKERS spawned
+    processes, in the order the phases use them, so the card's phases do
+    not wait on the host's numpy renders one after another. Returns (the
+    pool, {name: future of (inputs, seconds)})."""
+    (f0, d0), (f1, d1) = EUROC_CAM0, EUROC_CAM1
+    th, tw = TUM1_SIZE
+    jobs = dict(
+        mono=(orbit_sequence, (SLAM_FRAMES, W, H, CAMERA), {}),
+        vi=(vi_sequence, (VI_FRAMES, W, H, CAMERA), {}),
+        stereo=(orbit_stereo_sequence, (STEREO_FRAMES, W, H, f0, d0),
+                dict(right=(f1, d1), T_c1_c2=EUROC_T_C1_C2)),
+        rgbd=(rgbd_sequence, (RGBD_FRAMES, tw, th, TUM1_INTRINSICS), {}),
+        stereo_vi=(vi_sequence, (STEREO_VI_FRAMES, W, H, f0),
+                   dict(pinhole_dist=d0, T_c1_c2=EUROC_T_C1_C2, right=(f1, d1))),
+        vocab=(loop_sequences, (), {}),
+        runner=(write_runner_sequences, (runner_root,), {}))
+    # one thread each: the workers share the host with this process's
+    # host-bound phases (they spawn in the submits, with this environment)
+    threads = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in threads}
+    os.environ.update({k: "1" for k in threads})
+    try:
+        pool = ProcessPoolExecutor(RENDER_WORKERS,
+                                   mp_context=multiprocessing.get_context("spawn"))
+        futures = {name: pool.submit(timed_call, fn, *args, **kw)
+                   for name, (fn, args, kw) in jobs.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return pool, futures
+
+
+def rendered(futures: dict, name: str, what: str):
+    """The inputs of `name` from its worker, logging the worker's render
+    time and how long the phase waited for it."""
+    t0 = time.perf_counter()
+    out, seconds = futures[name].result()
+    log(f"rendered {what} in a worker in {seconds:.2f} s; the phase waited "
+        f"{time.perf_counter() - t0:.2f} s for it")
+    return out
+
+
+def runner_run(app, argv: list, snapshot_at: int | None = None, audit_frames=(),
+               plain: bool = False) -> dict:
+    """One dataset main (`app.run(argv)`, the card by default) with the
+    launch counters set to 0 just before and read just after. Records the
+    frames at which the IMU initialized (with the keyframe uid) and each
+    ladder rung ran, the state after `snapshot_at` frames (`slam_state`),
+    and `utils.timing.transfer_audit`'s counts around each of
+    `audit_frames`. With `plain`, the kernels' plain versions run."""
+    events, audits, snapshot = {}, {}, {}
+
+    @contextlib.contextmanager
+    def hook(i, slam, frame_log):
+        m = slam.trackers[0].map
+        kf_uid, box = int(m._next_uid), {}
+        with timing.transfer_audit(box) if i in audit_frames else contextlib.nullcontext():
+            yield
+        m = slam.trackers[0].map
+        if i in audit_frames:
+            audits[i] = dict(box, track_ms=frame_log.track_ms[-1],
+                             keyframes=int(m._next_uid) - kf_uid)
+        if m.imu_initialized and "imu_init" not in events:
+            events["imu_init"] = (i, int(m._next_uid) - 1)
+        for stage in (1, 2):
+            if m.iba_stage >= stage and f"viba{stage}" not in events:
+                events[f"viba{stage}"] = i
+        if i + 1 == snapshot_at:
+            snapshot.update(slam_state(slam, frame_log.tracked, events))
+
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_kernels())
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        with contextlib.redirect_stdout(buf):
+            out = app.run(argv, frame_hook=hook)
+        out["slam"].flush()
+        torch.cuda.synchronize()
+        out["launches"] = _build.snapshot()
+    m = out["slam"].trackers[0].map
+    out.update(events=events, audits=audits, stdout=buf.getvalue(),
+               iba_stage=m.iba_stage, keyframes=m.n_keyframes, points=m.n_points)
+    if snapshot_at is not None:
+        out["snapshot"] = snapshot
+    return out
+
+
+def check_runner(path: str, run: dict, reference: dict, frames: int, smi: str,
+                 policies, k2_per_frame: int = 1) -> None:
+    """A runner's outcome against the JAX app's on the same files: the init
+    and IMU-init frames within RUNNER_FRAME_TOL, the same `iba_stage`, the
+    tracked share, the metric ATE within RUNNER_ATE_MARGIN; its host times
+    and kernel launches printed."""
+    fl = run["log"]
+    s = fl.summary()
+    launches = run["launches"]
+    ate_bound = reference["ate_metric"] * RUNNER_ATE_MARGIN
+    log(f"{path}: rc {run['rc']}, {s['frames']} frames; initialized at frame "
+        f"{s['init_frame']} (JAX app {reference['init_frame']}), IMU at frame "
+        f"{s['imu_init_frame']} (JAX app {reference['imu_init_frame']}; (frame, keyframe "
+        f"uid) {run['events'].get('imu_init')}), iba_stage {run['iba_stage']} (JAX app "
+        f"{reference['iba_stage']}); tracked share {s['tracked_share']:.3f}; "
+        f"{run['keyframes']} keyframes, {run['points']} points; metric ATE "
+        f"{run['ate']:.6f} m (bound {ate_bound:.6f} m = JAX app's "
+        f"{reference['ate_metric']} m x {RUNNER_ATE_MARGIN})")
+    log(f"{path}: track ms/frame p50 {s['track_ms']['p50']:.1f}, p90 "
+        f"{s['track_ms']['p90']:.1f}, max {s['track_ms']['max']:.1f}; PNG decode "
+        f"ms/frame p50 {s['decode_ms']['p50']:.2f}, p90 {s['decode_ms']['p90']:.2f}, max "
+        f"{s['decode_ms']['max']:.2f} (host wall clock; {smi}); {run['wall_s']:.1f} s for "
+        f"the run")
+    log(f"{path}: launches {json.dumps(launches, sort_keys=True)}")
+    if run["rc"] != 0:
+        raise AssertionError(f"{path}: the app returned {run['rc']}")
+    if abs(s["init_frame"] - reference["init_frame"]) > RUNNER_FRAME_TOL or s["init_frame"] < 0:
+        raise AssertionError(f"{path}: initialized at frame {s['init_frame']}")
+    if abs(s["imu_init_frame"] - reference["imu_init_frame"]) > RUNNER_FRAME_TOL:
+        raise AssertionError(f"{path}: IMU initialized at frame {s['imu_init_frame']}")
+    if run["iba_stage"] != reference["iba_stage"]:
+        raise AssertionError(f"{path}: iba_stage {run['iba_stage']}")
+    if s["tracked_share"] < TRACKED_SHARE:
+        raise AssertionError(f"{path}: tracked {s['tracked_share']:.3f} of the frames")
+    if not run["ate"] <= ate_bound:
+        raise AssertionError(f"{path}: metric ATE {run['ate']} m over {ate_bound} m")
+    check_policies(launches, frames, path, policies=policies, k2_per_frame=k2_per_frame)
+
+
+def runner_phase(seqs: dict, root: str, smi: str) -> dict:
+    """The dataset mains on the written sequences (`write_runner_sequences`):
+    EuRoC mono-inertial (`run_euroc --imu --save-tum`, with
+    `transfer_audit` around three tracked frames) and `eval_ate` on its
+    trajectory, TUM-VI fisheye stereo-inertial (`run_euroc --tumvi --stereo
+    --imu`) and its first RUNNER_PREFIX frames through the plain versions,
+    TUM RGB-D (`run_rgbd`), `build_vocab` on 10 EuRoC frames loaded back,
+    `opt_analy --mode all` against the same on the CPU, and the codec's
+    decode and resize times. Returns the runs' launch counts."""
+    out = {}
+    traj = os.path.join(root, "euroc_traj.txt")
+    eu = runner_run(run_euroc, ["--seq", seqs["euroc"], "--imu", "--save-tum", traj, "--quiet"],
+                    audit_frames=RUNNER_AUDIT_FRAMES)
+    check_runner("EuRoC runner (mono-inertial)", eu, RUNNER_REFERENCE["euroc"],
+                 RUNNER_EUROC["n_frames"], smi, POLICIES)
+    for i, a in sorted(eu["audits"].items()):
+        log(f"transfer_audit, EuRoC frame {i}: h2d {a['h2d']}, d2h {a['d2h']}, synchronize "
+            f"calls {a['syncs']}, {a['keyframes']} keyframe(s) made, track {a['track_ms']:.1f} "
+            f"ms under the profiler ({smi})")
+    out["euroc"] = eu["launches"]
+
+    gt = os.path.join(seqs["euroc"], "mav0", "state_groundtruth_estimate0", "data.csv")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_ate.main([gt, traj])
+    rmse = float(buf.getvalue().split("absolute_translational_error.rmse ")[1].split()[0])
+    log(f"eval_ate on the saved trajectory: rc {rc}, rmse {rmse:.6f} m (no scale); run_euroc "
+        f"printed {eu['ate']:.6f} m ({eu['ate_mode']})")
+    if rc != 0 or eu["ate_mode"] != "metric" or abs(rmse - eu["ate"]) > EVAL_ATE_TOL:
+        raise AssertionError(f"eval_ate gives {rmse} m, run_euroc {eu['ate']} m")
+
+    vi_args = ["--seq", seqs["tumvi"], "--tumvi", "--stereo", "--imu", "--quiet"]
+    vi = runner_run(run_euroc, vi_args, snapshot_at=RUNNER_PREFIX)
+    check_runner("TUM-VI runner (fisheye stereo-inertial)", vi, RUNNER_REFERENCE["tumvi"],
+                 RUNNER_TUMVI["n_frames"], smi, FISHEYE_POLICIES, k2_per_frame=2)
+    vplain = runner_run(run_euroc, vi_args + ["--max-frames", str(RUNNER_PREFIX)],
+                        snapshot_at=RUNNER_PREFIX, plain=True)
+    check_prefix_agree(vi, vplain, "TUM-VI runner")
+    out["tumvi"] = vi["launches"]
+
+    tum = runner_run(run_rgbd, ["--seq", seqs["tum"], "--quiet"])
+    check_runner("TUM RGB-D runner", tum, RUNNER_REFERENCE["tum"], RUNNER_TUM["n_frames"],
+                 smi, DEPTH_POLICIES)
+    out["tum"] = tum["launches"]
+
+    vocab_path = os.path.join(root, "vocab.npz")
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bv = build_vocab.run(["--seq", seqs["euroc"], "--max-frames", "10", "--k", "10",
+                              "--depth", "3", "--out", vocab_path])
+    torch.cuda.synchronize()
+    out["build_vocab"] = _build.snapshot()
+    loaded = Vocabulary.load(vocab_path)
+    same = (loaded.n_words == bv["vocab"].n_words == 1000
+            and all(np.array_equal(a, b) for a, b in zip(loaded.levels, bv["vocab"].levels))
+            and all(np.array_equal(a, b) for a, b in zip(loaded.valid, bv["vocab"].valid))
+            and np.array_equal(loaded.idf, bv["vocab"].idf))
+    log(f"build_vocab: {bv['frames']} frames, {bv['descriptors']} descriptors, "
+        f"{loaded.n_words} words in {time.perf_counter() - t0:.2f} s; loaded back equal: "
+        f"{same}; launches {json.dumps(out['build_vocab'], sort_keys=True)}")
+    if bv["rc"] != 0 or not same or out["build_vocab"].get(patch.KERNEL, 0) != bv["frames"]:
+        raise AssertionError("build_vocab: the saved vocabulary or its K2 launches are wrong")
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = opt_analy.main(["--mode", "all"])
+    card_s = time.perf_counter() - t0
+    printed = buf.getvalue().strip().splitlines()[1:]
+    cpu = opt_analy.analyse(device="cpu")
+    # the printed numbers: four mean errors in cm (0.1 cm), calib's two at 1e-4
+    card = [float(x) for x in re.findall(r"[-+]?\d+\.\d+", "\n".join(printed))]
+    ref = [cpu[k] * 100 for k in ("pos", "regu", "imu", "key")] + list(cpu["calib"].values())
+    log(f"opt_analy --mode all on the card: rc {rc}, {card_s:.1f} s; {printed}; the CPU: {cpu}")
+    if rc != 0 or len(card) != len(ref) or not all(
+            abs(a - b) <= OPT_ANALY_TOL[0] + OPT_ANALY_TOL[1] * abs(b) for a, b in zip(card, ref)):
+        raise AssertionError(f"opt_analy on the card {card} against the CPU's {ref}")
+
+    seq = load_euroc(seqs["euroc"])
+    decode, resize = [], {size: [] for size in RESIZE_TO}
+    for i in range(10):
+        t0 = time.perf_counter()
+        img = seq.read_image(i)
+        decode.append((time.perf_counter() - t0) * 1e3)
+        for size in RESIZE_TO:
+            t0 = time.perf_counter()
+            imageio.resize_linear(img, *size)
+            resize[size].append((time.perf_counter() - t0) * 1e3)
+    log(f"PNG decode of a {W}x{H} frame: median {statistics.median(decode):.2f} ms; "
+        + "; ".join(f"resize_linear to {w}x{h}: median {statistics.median(v):.2f} ms"
+                    for (w, h), v in resize.items()) + f" (host wall clock; {smi})")
+    return out
+
+
+def write_runner_sequences(root: str, which=("euroc", "tumvi", "tum")) -> dict:
+    """The runner phase's sequences written under `root` by the port's
+    writers: {"euroc", "tumvi", "tum"} -> directory. The TUM-VI one keeps
+    its ground truth under mocap0, as TUM-VI does. ORB_SYNTH_CACHE is
+    ignored: every file is written here."""
+    from orbslam3_tpu_torch.datasets.synth_euroc import write_synth_euroc
+    from orbslam3_tpu_torch.datasets.tum_rgbd import write_synth_tum_rgbd
+    saved = os.environ.pop("ORB_SYNTH_CACHE", None)
+    out = {}
+    try:
+        if "euroc" in which:
+            out["euroc"] = write_synth_euroc(os.path.join(root, "euroc"), **RUNNER_EUROC)
+        if "tumvi" in which:
+            d = write_synth_euroc(os.path.join(root, "tumvi"), **RUNNER_TUMVI)
+            os.rename(os.path.join(d, "mav0", "state_groundtruth_estimate0"),
+                      os.path.join(d, "mav0", "mocap0"))
+            out["tumvi"] = d
+        if "tum" in which:
+            out["tum"] = write_synth_tum_rgbd(os.path.join(root, "tum"), **RUNNER_TUM)
+    finally:
+        if saved is not None:
+            os.environ["ORB_SYNTH_CACHE"] = saved
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA card", file=sys.stderr)
         return 1
+    runner_root = tempfile.mkdtemp(prefix="chip_smoke_runners_")
+    pool, futures = start_renders(runner_root)
+    try:
+        return phases(futures, pool, runner_root)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(runner_root, ignore_errors=True)
+
+
+def phases(futures: dict, pool, runner_root: str) -> int:
+    """Every phase, in order, on inputs the render workers prepare."""
     dev = torch.device("cuda")
     kernels = {}
 
@@ -2182,10 +2519,8 @@ def main() -> int:
             f"matches {nm} vs {int(res_p['nm'])}, max pose diff {d_pose:.3e}")
 
     with phase("mono SLAM at full width"):
-        t0 = time.perf_counter()
-        imgs, R_gt, t_gt, stamps = orbit_sequence(SLAM_FRAMES, W, H, CAMERA)
+        imgs, R_gt, t_gt, stamps = rendered(futures, "mono", f"{SLAM_FRAMES} frames at {W}x{H}")
         mono_frames = imgs, R_gt, t_gt, stamps
-        log(f"rendered {SLAM_FRAMES} frames at {W}x{H} in {time.perf_counter() - t0:.2f} s")
         run = mono_slam(imgs, stamps, camera)
         slam_launches = run["launches"]
         init = run["init"]
@@ -2224,11 +2559,8 @@ def main() -> int:
             raise AssertionError("kernel and plain SLAM runs disagree")
 
     with phase("mono-inertial SLAM at full width"):
-        t0 = time.perf_counter()
-        seq = vi_sequence(VI_FRAMES, W, H, CAMERA)
+        seq = rendered(futures, "vi", f"{VI_FRAMES} frames at {W}x{H} with 200 Hz IMU")
         batches = imu_batches(seq.frame_ts, seq.imu_ts, seq.gyro, seq.acc)
-        log(f"rendered {VI_FRAMES} frames at {W}x{H} with {len(seq.imu_ts)} IMU samples "
-            f"in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         vi = mono_slam(seq.images, seq.frame_ts, camera, imu=batches, snapshot_at=PLAIN_PREFIX)
         vi_seconds = time.perf_counter() - t0
@@ -2278,45 +2610,33 @@ def main() -> int:
                            imu=batches[:n], snapshot_at=n)
         check_prefix_agree(vi, vplain, "VI SLAM")
 
-    (f0, d0), (f1, d1) = EUROC_CAM0, EUROC_CAM1
     with phase("stereo SLAM at full width"):
-        t0 = time.perf_counter()
-        left, right, R_gt, t_gt, stamps = orbit_stereo_sequence(
-            STEREO_FRAMES, W, H, f0, d0, right=(f1, d1), T_c1_c2=EUROC_T_C1_C2)
-        log(f"rendered {STEREO_FRAMES} raw stereo pairs at {W}x{H} in "
-            f"{time.perf_counter() - t0:.2f} s")
+        left, right, R_gt, t_gt, stamps = rendered(
+            futures, "stereo", f"{STEREO_FRAMES} raw stereo pairs at {W}x{H}")
         st_run = depth_phase("stereo SLAM", EUROC_STEREO_YAML, "stereo",
                              list(zip(left, right)), stamps, R_gt, t_gt, STEREO_REFERENCE, smi)
 
     with phase("RGB-D SLAM at full width"):
-        t0 = time.perf_counter()
         th, tw = TUM1_SIZE
-        rgbd = rgbd_sequence(RGBD_FRAMES, tw, th, TUM1_INTRINSICS)
-        log(f"rendered {RGBD_FRAMES} frames at {tw}x{th} with uint16 depth in "
-            f"{time.perf_counter() - t0:.2f} s")
+        rgbd = rendered(futures, "rgbd", f"{RGBD_FRAMES} frames at {tw}x{th} with uint16 depth")
         factor = 1.0 / Settings.from_text(TUM1_RGBD_YAML, "rgbd").depth_map_factor
         rgbd_run = depth_phase("RGB-D SLAM", TUM1_RGBD_YAML, "rgbd",
                                list(zip(rgbd.images, rgbd.depth)), rgbd.frame_ts, rgbd.R_cw,
                                rgbd.t_cw, RGBD_REFERENCE, smi, depth_factor=factor)
 
     with phase("stereo-inertial SLAM at full width"):
-        t0 = time.perf_counter()
-        sv = vi_sequence(STEREO_VI_FRAMES, W, H, f0, pinhole_dist=d0, T_c1_c2=EUROC_T_C1_C2,
-                         right=(f1, d1))
+        sv = rendered(futures, "stereo_vi",
+                      f"{STEREO_VI_FRAMES} raw stereo pairs at {W}x{H} with 200 Hz IMU")
         sv_batches = imu_batches(sv.frame_ts, sv.imu_ts, sv.gyro, sv.acc)
-        log(f"rendered {STEREO_VI_FRAMES} raw stereo pairs at {W}x{H} with "
-            f"{len(sv.imu_ts)} IMU samples in {time.perf_counter() - t0:.2f} s")
         sv_run = depth_phase("stereo-inertial SLAM", EUROC_STEREO_INERTIAL_YAML, "imu_stereo",
                              list(zip(sv.images, sv.images_right)), sv.frame_ts, sv.R_cw,
                              sv.t_cw, STEREO_VI_REFERENCE, smi, imu=sv_batches,
                              plain_frames=PLAIN_PREFIX)
 
     with phase("mono SLAM with a vocabulary at full width"):
-        t0 = time.perf_counter()
-        seqs = loop_sequences()
-        log(f"rendered {sum(len(v[3]) for v in seqs.values())} frames at {W}x{H} "
-            f"({', '.join(f'{k} {len(v[3])}' for k, v in seqs.items())}) in "
-            f"{time.perf_counter() - t0:.2f} s")
+        seqs = rendered(futures, "vocab", "the vocabulary phase's sessions")
+        log(f"{sum(len(v[3]) for v in seqs.values())} frames at {W}x{H} "
+            f"({', '.join(f'{k} {len(v[3])}' for k, v in seqs.items())})")
         t0 = time.perf_counter()
         voc = vocab_slam(seqs, camera)
         log(f"vocabulary phase: {time.perf_counter() - t0:.1f} s for the kernel run; "
@@ -2355,6 +2675,11 @@ def main() -> int:
         dist_run = multihost_run()
         check_multihost(dist_run, smi)
 
+    with phase("runners on written sequences"):
+        runner_seqs = rendered(futures, "runner", "the runners' sequences, written to disk,")
+        pool.shutdown(wait=True)  # every input is in; the timings want no other thread
+        runner = runner_phase(runner_seqs, runner_root, smi)
+
     with phase("timings"):
         others = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
         if others:  # a launch from another thread would break the graph captures
@@ -2380,6 +2705,7 @@ def main() -> int:
             launches_edge={"server": edge["server"].get(patch.KERNEL, 0),
                            "phones": edge["phones"].get(patch.KERNEL, 0)},
             launches_multihost=[r.get(patch.KERNEL, 0) for r in dist_run["launches"]],
+            launches_runner={key: r.get(patch.KERNEL, 0) for key, r in runner.items()},
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         # K1 at one captured mask of each policy: the mono run's four, the
         # stereo run's row band, and one fisheye pair's all-valid mask
@@ -2426,6 +2752,10 @@ def main() -> int:
             launches_by_policy_multihost=[{pol: r.get(f"{hamming.KERNEL}[{pol}]", 0)
                                            for pol in MULTIHOST_POLICIES}
                                           for r in dist_run["launches"]],
+            launches_runner={key: r.get(hamming.KERNEL, 0) for key, r in runner.items()},
+            launches_by_policy_runner={
+                key: {k.split("[")[1][:-1]: v for k, v in sorted(r.items())
+                      if k.startswith(f"{hamming.KERNEL}[")} for key, r in runner.items()},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "

@@ -17,6 +17,7 @@ at most 1 grey level (`tests/test_torch_render.py` measures it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -143,6 +144,30 @@ def make_texture(size: int = 1024, seed: int = 0, n_blobs: int = 350,
     return np.clip(tex, 0, 255).astype(np.uint8)
 
 
+def _camera_rays(camera, width: int, height: int) -> np.ndarray:
+    """The camera-frame ray of every pixel centre through `camera`'s model,
+    (height, width, 3) float64, read-only."""
+    camera = camera.to("cpu")
+    return _rays(camera.kind, tuple(camera.params.tolist()), width, height)
+
+
+@functools.lru_cache(maxsize=4)
+def _rays(kind: str, params: tuple, width: int, height: int) -> np.ndarray:
+    """`_camera_rays`, kept per camera and size: a sequence renders every
+    frame through the same rays, and a KB8 unprojection (Newton on the
+    theta polynomial) costs three times the rest of a frame."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    camera = Camera(kind, torch.tensor(params, dtype=torch.float32), width, height)
+    u, v = np.meshgrid(np.arange(width, dtype=np.float64), np.arange(height, dtype=np.float64))
+    uv = np.stack([u.reshape(-1), v.reshape(-1)], -1)
+    # undistort first so distorted-pinhole (radtan) cameras render exactly;
+    # for KB8 undistort_points is identity and unproject holds the model
+    uvq = camera.undistort_points(torch.as_tensor(uv, dtype=torch.float32))
+    d_c = camera.unproject(uvq).numpy().astype(np.float64).reshape(height, width, 3)
+    d_c.setflags(write=False)
+    return d_c
+
+
 @dataclasses.dataclass
 class BoxScene:
     """Axis-aligned box interior: 6 textured faces.
@@ -183,14 +208,7 @@ class BoxScene:
         u, v = np.meshgrid(np.arange(width, dtype=np.float64),
                            np.arange(height, dtype=np.float64))
         if camera is not None:
-            camera = camera.to("cpu")
-            uv = np.stack([u.reshape(-1), v.reshape(-1)], -1)
-            # undistort first so distorted-pinhole (radtan) cameras render
-            # exactly; for KB8 undistort_points is identity and unproject
-            # holds the distortion model
-            uvq = camera.undistort_points(torch.as_tensor(uv, dtype=torch.float32))
-            d_c = camera.unproject(uvq).numpy().astype(np.float64)
-            d_c = d_c.reshape(height, width, 3)
+            d_c = _camera_rays(camera, width, height)
         else:
             d_c = np.stack([(u - K[0, 2]) / K[0, 0],
                             (v - K[1, 2]) / K[1, 1],
@@ -351,12 +369,14 @@ def orbit_stereo_sequence(n_frames: int, width: int, height: int, intrinsics, di
 
 def excited_trajectory(n_frames: int, fps: float, imu_rate: float, center,
                        radius: float, arc: float, excitation: float = 0.06,
-                       rot_excitation: float = 0.0, seed: int = 0):
-    """An orbit looking at `center` with sinusoidal translational (and
-    optionally rotational) excitation, and IMU samples consistent with it.
+                       rot_excitation: float = 0.0, seed: int = 0, look: str = "center"):
+    """An orbit with sinusoidal translational (and optionally rotational)
+    excitation, and IMU samples consistent with it.
 
-    Port of `orbslam3_tpu/datasets/synth_euroc.py:excited_trajectory` (the
-    'center' gaze). Scale and the accelerometer bias are observable only
+    Port of `orbslam3_tpu/datasets/synth_euroc.py:excited_trajectory`. The
+    gaze `look` is 'center' (every view looks at `center` and shares
+    landmarks) or 'tangent' (along the direction of travel, corridor-style:
+    covisibility breaks behind the camera). Scale and the accelerometer bias are observable only
     under real acceleration and rotation, so the path shakes at 1.4-2.6 Hz.
     The dense path is sampled at the IMU rate and differentiated there.
     Returns (R_cw (F,3,3), t_cw (F,3), frame_idx, imu_t (K+1,), gyro (K,3),
@@ -377,8 +397,12 @@ def excited_trajectory(n_frames: int, fps: float, imu_rate: float, center,
     phases = rng.uniform(0, 2 * np.pi, 3)
     for ax in range(3):
         C[:, ax] += excitation * np.sin(2 * np.pi * freqs[ax] * t + phases[ax])
-    look_v = np.asarray(center, np.float64)[None] - C
-    z = look_v / np.linalg.norm(look_v, axis=1, keepdims=True)
+    if look == "tangent":
+        d = np.gradient(C, axis=0)
+        z = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    else:
+        look_v = np.asarray(center, np.float64)[None] - C
+        z = look_v / np.linalg.norm(look_v, axis=1, keepdims=True)
     up = np.array([0.0, 1.0, 0.0])
     x = np.cross(np.broadcast_to(up, z.shape), z)
     x = x / np.linalg.norm(x, axis=1, keepdims=True)

@@ -52,15 +52,15 @@ def interval_to_distance(n1, n2, device=None):
     return d, (d > 0.0) & (d < MAX_RANGE_M)
 
 
-def _lm(residual_fn, x0: torch.Tensor) -> torch.Tensor:
-    """Dense LM over a flat parameter vector: forward-mode Jacobian, a step
-    kept only if it lowers the cost, damping x0.3 on a kept step and x5 on
-    a rejected one."""
+def _lm(residual_fn, x0: torch.Tensor, n_iters: int = LM_ITERS) -> torch.Tensor:
+    """Dense LM over a flat parameter vector, `n_iters` steps: forward-mode
+    Jacobian, a step kept only if it lowers the cost, damping x0.3 on a
+    kept step and x5 on a rejected one."""
     x = x0
     lam = torch.full((1,), 1e-4, dtype=x0.dtype, device=x0.device)
     eye = torch.eye(x0.shape[0], dtype=x0.dtype, device=x0.device)
     jac = jacfwd(residual_fn)
-    for _ in range(LM_ITERS):
+    for _ in range(n_iters):
         r = residual_fn(x)
         J = jac(x)
         H = J.T @ J
@@ -170,12 +170,12 @@ def imu_acoustic_key_optimize(pos, delta_p, distances, anchors, scale, valid=Non
 
 
 def calibrate_mic_offset(t_mc, scale, R0, t0, R_others, t_others, distances, valid=None,
-                         device=None):
+                         n_iters: int = LM_ITERS, device=None):
     """Joint microphone offset and metric scale (CalibOptimization): t_mc
     (the microphone in the camera frame) and s (world -> SLAM scale) from
     K poses of user 0, M poses of the others and a (K, M) distance table,
     err = d − ‖t_wm0 − t_wm1‖ / s with t_wm = R·(−s·t_mc) + t. Returns
-    (t_mc, s)."""
+    (t_mc, s) after `n_iters` LM steps."""
     dev = device_policy.resolve(device)
     R0, t0, R_others, t_others, distances = (_f32(x, dev) for x in
                                              (R0, t0, R_others, t_others, distances))
@@ -193,5 +193,5 @@ def calibrate_mic_offset(t_mc, scale, R0, t0, R_others, t_others, distances, val
         return r
 
     x0 = torch.cat([_f32(t_mc, dev).reshape(3), _scale(scale, dev)])
-    x = _lm(res, x0)
+    x = _lm(res, x0, n_iters)
     return x[:3], x[3]

@@ -397,7 +397,13 @@ def vi_ba_iteration(prob: VIBAProblem, edges: InertialEdges, camera, Rcb, tcb,
     dl = -_mv(T @ T.transpose(-1, -2), rhs)
     dl = torch.where(empty_lm[:, None], 0.0, dl)
 
-    Rwb = lie.so3_normalize(prob.Rwb @ lie.so3_exp(dx[:, :3]))
+    # a non-finite step must reach the caller's cost check, which rolls it
+    # back (the JAX package's SVD gives NaN there; torch's raises), so the
+    # SVD sees finite matrices and a non-finite rotation comes out NaN
+    R_new = prob.Rwb @ lie.so3_exp(dx[:, :3])
+    finite = torch.isfinite(R_new).all(dim=-1).all(dim=-1)[:, None, None]
+    eye = torch.eye(3, dtype=dtype, device=dev).expand_as(R_new)
+    Rwb = torch.where(finite, lie.so3_normalize(torch.where(finite, R_new, eye)), torch.nan)
     out = prob._replace(Rwb=Rwb, twb=prob.twb + _mv(prob.Rwb, dx[:, 3:6]),
                         vel=prob.vel + dx[:, 6:9], bias=prob.bias + dx[:, 9:15],
                         points=prob.points + dl)

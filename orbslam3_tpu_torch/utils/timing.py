@@ -8,9 +8,9 @@ timers in mapping, in a process-global registry of named series, and
 `stage(name)` times host wall clock and does not synchronize the card:
 callers time whole host-visible stages, which is what the reference
 measures too. Disabled by default (a perf_counter pair when on); enable
-with `timing.enable()` or ORBSLAM3_TORCH_TIMING=1. The reference's
-`transfer_audit` counts JAX's host<->device transfers and has no
-counterpart here.
+with `timing.enable()` or ORBSLAM3_TORCH_TIMING=1. `transfer_audit`
+counts the host<->device copies inside a block from torch.profiler's CUDA
+memcpy events, where the reference counts JAX's transfer-guard log lines.
 """
 
 from __future__ import annotations
@@ -107,3 +107,39 @@ def counts() -> dict[str, int]:
 
 def reset_counts():
     _counts.clear()
+
+
+# -- host<->device copies ------------------------------------------------------
+
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+@contextlib.contextmanager
+def transfer_audit(box: dict):
+    """Counts the host<->device copies inside the block into `box`.
+
+    Port of `orbslam3_tpu/utils/timing.py:transfer_audit`. The block runs
+    under `torch.profiler` (with CUDA activity where a card is present); on
+    exit `box["h2d"]` and `box["d2h"]` hold the CUDA memcpy events from host
+    to device and back, and `box["syncs"]` the runtime's synchronize calls.
+    Tensors on the CPU copy nothing, so the counts are 0 there. Nothing is
+    redirected: stderr written inside the block stays where it was, and an
+    error inside the block raises after the counts are taken."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    try:
+        yield box
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        names = [e.name for e in prof.events()]
+        box["h2d"] = sum("Memcpy HtoD" in n for n in names)
+        box["d2h"] = sum("Memcpy DtoH" in n for n in names)
+        box["syncs"] = sum(n in _SYNC_CALLS for n in names)

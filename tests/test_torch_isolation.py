@@ -1,6 +1,8 @@
-"""The port and chip_smoke.py import neither jax, flax nor orbslam3_tpu.
+"""The port and chip_smoke.py import neither jax, flax nor orbslam3_tpu,
+nor OpenCV, PIL, imageio or PyYAML.
 
-The machine with the card has no jax; the test process here imports jax
+The machine with the card has no jax and no OpenCV; the test process here
+imports jax
 for every test (conftest.py), so a stray import would pass unnoticed. A
 fresh interpreter blocks those names with a meta-path finder and imports
 every module of the port and chip_smoke.py; an `ast` scan of the sources
@@ -12,7 +14,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "orbslam3_tpu")
+BLOCKED = ("jax", "flax", "orbslam3_tpu", "cv2", "PIL", "imageio", "yaml")
 # the modules of the monocular SLAM slice
 SLICE_B = ("engine.system", "engine.tracking", "engine.local_mapping", "opt.ba",
            "opt.pose_gn", "slam_map.map_state", "slam_map.atlas", "vision.twoview",
@@ -32,6 +34,12 @@ SLICE_FH = ("slam_map.serialize", "engine.async_engine", "native", "edge", "edge
 SLICE_G = ("distributed", "distributed.map_blocks", "distributed.host_exchange",
            "distributed.mesh", "distributed.sharded_ba", "distributed.multihost",
            "apps.multihost")
+# the dataset runners: the PNG codec, loaders, writers and the ten apps
+SLICE_I = ("datasets", "datasets.imageio", "datasets.euroc", "datasets.kitti",
+           "datasets.tum_rgbd", "datasets.synth_euroc", "apps.common", "apps.run_euroc",
+           "apps.run_rgbd", "apps.run_kitti", "apps.run_pixel", "apps.run_synth",
+           "apps.eval_ate", "apps.build_vocab", "apps.process_imu", "apps.opt_analy",
+           "apps.draw_traj")
 
 _CHILD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -63,7 +71,7 @@ print(" ".join(names))
 def _sources():
     sources = sorted((ROOT / "orbslam3_tpu_torch").rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_frontend.py")]
-    for app in ("edge_server.py", "multihost.py"):
+    for app in ("edge_server.py", "multihost.py", "run_euroc.py", "draw_traj.py"):
         assert ROOT / "orbslam3_tpu_torch" / "apps" / app in sources
     assert (ROOT / "orbslam3_tpu_torch" / "distributed" / "sharded_ba.py") in sources
     return sources
@@ -75,9 +83,10 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    assert len(imported) >= 68  # every module of slices A-H
+    assert len(imported) >= 85  # every module of slices A-I
     assert {f"orbslam3_tpu_torch.{m}"
-            for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E + SLICE_FH + SLICE_G} <= imported
+            for m in SLICE_B + SLICE_C + SLICE_D + SLICE_E + SLICE_FH + SLICE_G + SLICE_I
+            } <= imported
 
 
 def test_no_jax_import_in_sources():

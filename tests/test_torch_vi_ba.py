@@ -120,3 +120,23 @@ def test_visual_inertial_ba_matches_jax(vi_problem, n_iters, priors):
     out_got = _outliers(got, t32(I3), t32(z3), lambda p, R, t: tin._vi_reproj(p, TCAM, R, t))
     np.testing.assert_array_equal(out_got, out_ref)
     assert out_got[bad].sum() >= 4  # the gross outliers are gated
+
+
+def test_visual_inertial_ba_rolls_back_a_non_finite_step(vi_problem):
+    """A problem whose step is not finite (here one keyframe's bias is NaN,
+    so every cost and step is): the JAX package keeps the input and reports
+    infinite costs; the port did the same only after its rotation update
+    stopped handing NaN to torch's SVD, which raised."""
+    jprob, tprob, ej, et, _ = vi_problem
+    bias = np_(tprob.bias).copy()
+    bias[3, 4] = np.nan
+    jprob = jprob._replace(bias=jnp.asarray(bias))
+    tprob = tprob._replace(bias=torch.from_numpy(bias))
+    I3, z3 = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    ref, ref_costs = jin.visual_inertial_ba(jprob, ej, JCAM, jnp.asarray(I3), jnp.asarray(z3),
+                                            n_iters=3)
+    got, costs = tin.visual_inertial_ba(tprob, et, TCAM, t32(I3), t32(z3), n_iters=3)
+    assert np.isinf(np_(ref_costs)).all() and np.isinf(np_(costs)).all()
+    for name in ("Rwb", "twb", "vel", "bias", "points"):
+        np.testing.assert_array_equal(np_(getattr(ref, name)), np_(getattr(jprob, name)))
+        np.testing.assert_array_equal(np_(getattr(got, name)), np_(getattr(tprob, name)))
