@@ -16,9 +16,10 @@ features, 8 levels, x1.2; 2048 map-point candidates):
 - monocular SLAM (`Slam.track_monocular`) over a rendered 40-frame
   sequence: the frame the map initialized at, the tracked share, the
   keyframe and point counts, the Sim3-aligned ATE against the rendered
-  poses, K1's launches per matcher policy and K2's per frame, then the
-  same frames once more through the kernels' plain versions, a run that
-  must launch no kernel;
+  poses, K1's launches per matcher policy and K2's per frame, then its
+  first 20 frames once more through the kernels' plain versions, a run
+  that must launch no kernel and agree with the kernel run's state after
+  them;
 - mono-inertial SLAM (`Slam(sensor=IMU_MONOCULAR).track_monocular(...,
   imu=...)`) over a rendered 120-frame sequence with 200 Hz IMU
   (`vi_sequence`): the IMU initialization, the VIBA1/VIBA2 ladder, the
@@ -80,13 +81,30 @@ features, 8 levels, x1.2; 2048 map-point candidates):
   join a group of 2, rank 0 welds rank 1's map and its merged-map ATE
   stays within 3x the JAX package's on the same arguments, K1 runs under
   four policies in both ranks and is exact on rank 0's inputs;
+- the failure and lifecycle paths, in three parts: (a) mono-inertial SLAM
+  with the vocabulary over the mono-inertial phase's frames, each map
+  starting at small capacity tiers, with faults at fixed frames
+  (`lifecycle_plan`: 10 dropped frames, a backward timestamp that stores
+  the map and spawns a new one, a 3 s forward gap that resets the young
+  one, `bad_imu` that resets it again), its events, capacity events, maps,
+  tracked share and last map's metric ATE held to the JAX package's run
+  on the same frames, and its frames up to the respawn rerun through the
+  plain versions; (b) a global BA on its thread over the vocabulary
+  phase's merged map while client 1 tracks 12 new views: no error, the
+  keyframes made meanwhile caught up, the solve within R 2e-3 / t 5e-3 of
+  the inline one on the same snapshot; (c) the edge server with each
+  phone on its own thread at 20 Hz whatever the replies (phone 1 from
+  2.25 s on): per lane the packets sent, dropped, skipped and answered,
+  the reply delays, replies in frame order, client 0 initialized, client
+  1 relocalized and then tracked, then an acoustic round. (b) and (c)
+  depend on timing and have no plain rerun;
 - the dataset runners on sequences the port's writers put on disk and its
   PNG codec reads back: `apps/run_euroc --imu --save-tum` over a 48-frame
   EuRoC-layout sequence at 752x480 (the IMU initializes inside it,
   `utils.timing.transfer_audit` around three tracked frames), `eval_ate`
   on its saved trajectory (the same ATE), `run_euroc --tumvi --stereo
   --imu` over 45 frames of a TUM-VI-layout KB8 fisheye pair at 512x512
-  (the first fisheye SLAM run; its first 20 frames again through the plain
+  (the first fisheye SLAM run; its first 10 frames again through the plain
   versions), `run_rgbd` over 20 TUM RGB-D frames at 640x480, each held to
   the JAX apps on the same files (init and IMU-init frames, `iba_stage`,
   tracked share, metric ATE); `build_vocab` (K2 on the card) loaded back,
@@ -152,7 +170,8 @@ from orbslam3_tpu_torch.edge import acoustic, wire
 from orbslam3_tpu_torch.edge.client_sim import FakePhone
 from orbslam3_tpu_torch.edge.server import (K_TRACK, N_FEATURES_INIT, N_FEATURES_TRACKING,
                                             EdgeServer)
-from orbslam3_tpu_torch.engine import local_mapping
+from orbslam3_tpu_torch.engine import global_ba, local_mapping
+from orbslam3_tpu_torch.engine.global_ba import GlobalBA
 from orbslam3_tpu_torch.engine.local_mapping import LocalMapperConfig
 from orbslam3_tpu_torch.engine.loop_closing import LoopCloser
 from orbslam3_tpu_torch.engine.system import Sensor, Slam, SystemConfig
@@ -237,6 +256,7 @@ VI_SCALE_FLOOR = 0.05     # |s - 1| bound: max(this, 2x the JAX package's)
 # the plain versions (past the IMU init at frames 40-42, before VIBA1), to
 # keep the script near 930 s of phases with the runner phase
 PLAIN_PREFIX = 45
+MONO_PREFIX = 20    # frames of the mono run rerun through the plain versions
 
 # Stereo and RGB-D: the settings are parsed from these YAML texts by the
 # port's `Settings` (the card's machine has no PyYAML). EuRoC's raw pair as
@@ -512,7 +532,7 @@ RUNNER_TUMVI = dict(n_frames=45, width=FISHEYE_SIZE, height=FISHEYE_SIZE, fx=TUM
                     arc=0.375, excitation=0.05, rot_excitation=0.06)
 RUNNER_TUM = dict(n_frames=20, width=TUM1_SIZE[1], height=TUM1_SIZE[0],
                   fx=TUM1_INTRINSICS[0], fy=TUM1_INTRINSICS[1], n_features=1000, arc=0.5)
-RUNNER_PREFIX = 20          # frames of the fisheye run rerun through the plain versions
+RUNNER_PREFIX = 10          # frames of the fisheye run rerun through the plain versions
 # The JAX apps on the same files (CPU; python scripts/port_runner_reference.py,
 # which writes them with `write_runner_sequences`): EuRoC mono-inertial
 # initialized at frame 5, the IMU at frame 41, iba_stage 0, all 43 frames
@@ -532,7 +552,64 @@ RUNNER_AUDIT_FRAMES = (44, 45, 46)   # EuRoC frames tracked under transfer_audit
 FISHEYE_POLICIES = ("tracker", "fisheye_stereo", "triangulation", "fuse")
 OPT_ANALY_TOL = (0.1, 1e-2)  # abs (cm; calib's ratio and m), rel: the card against the CPU
 RESIZE_TO = ((640, 408), (376, 240))  # resize_linear timed per EuRoC frame (2x: INTER_AREA)
+# The lifecycle phase. (a) The failure ladder and the capacity tiers:
+# `Slam(sensor=IMU_MONOCULAR)` with the shipped vocabulary (the BoW fallback
+# and relocalization; global BA inline) over the mono-inertial phase's
+# frames and IMU, each new map starting at small tiers and the IMU
+# initialization span cut to 1 s, so the last map's IMU initializes inside
+# the run. The tiers are half tests/test_soak.py's (16 keyframes, 2048
+# points): over this run a map holds at most ~14 keyframes and ~1000
+# points, so at 16 / 2048 nothing would grow. `lifecycle_plan` sends frames
+# 0-19, drops 20-29 (their IMU samples come with frame 30), sends 30-34,
+# turns the clock back 5 s at frame 35 (the map is stored and a new one
+# spawned), forward 3 s at frame 47 while the new map's IMU is young (reset
+# in place), sets `bad_imu` on the active map before frame 57 (reset), and
+# ends at frame 89. The frames up to and including the respawn are rerun
+# through the plain versions. (b) A global BA on its thread over the
+# vocabulary phase's merged map while client 1 tracks LIFECYCLE_GBA_FRAMES
+# new views (`gba_views_of_loop`), held to the inline solve on the same
+# snapshot. (c) The edge server as deployed: the edge phase's phones each on
+# its own thread, a packet every LIFECYCLE_PACE_S whatever the replies.
+LIFECYCLE_TIERS = (8, 1024)
+LIFECYCLE_MAPPER = dict(imu_init_min_span_s=1.0, **VI_CADENCE)
+LIFECYCLE_DROPPED = (20, 30)
+LIFECYCLE_BACKWARD, LIFECYCLE_BACK_S = 35, -5.0
+LIFECYCLE_GAP, LIFECYCLE_GAP_S = 47, 3.0
+LIFECYCLE_BAD_IMU = 57
+LIFECYCLE_END = 90
+LIFECYCLE_FRAME_TOL = 2     # frames: each event against the JAX package's
+LIFECYCLE_SHARE = 0.8       # tracked share from each map's first tracked frame
+LIFECYCLE_ATE_MARGIN = 3.0  # the last map's metric ATE against the JAX package's
+# The JAX package on the same frames (CPU, 338 s; python
+# scripts/port_lifecycle_reference.py): frames 0-5 initializing, then every
+# frame tracked until the respawn at plan frame 25 (map 0: 6 keyframes, 859
+# points, its IMU not yet initialized); the new map initialized at 30 and
+# tracked to the gap at 37 (reset in place); the reset map initialized at
+# 46, `bad_imu` at 47 (reset); the last map initialized at 55, grew its
+# points 1024 -> 2048 at 66 and its keyframes 8 -> 16 at 71, its IMU
+# initialized, every frame from its init tracked: 13 keyframes, 1021
+# points, metric ATE 0.008068 m (Sim3 0.008065 m) over 25 poses, keyframe
+# scale 1.00503, gravity tilt 0.062 deg.
+LIFECYCLE_REFERENCE = dict(
+    events=[dict(kind="timestamp_jump", frame=25, action="new_map"),
+            dict(kind="timestamp_jump", frame=37, action="reset_map"),
+            dict(kind="map_reset", frame=37, action=None),
+            dict(kind="bad_imu_reset", frame=47, action=None),
+            dict(kind="map_reset", frame=47, action=None)],
+    capacity=[dict(kind="grow_points", frame=66, map_id=1),
+              dict(kind="grow_keyframes", frame=71, map_id=1)],
+    n_maps=2, tracked_share=1.0,
+    last_segment=dict(ate_metric=0.008068, ate_sim3=0.008065, kf_scale=1.00503,
+                      gravity_tilt_deg=0.062))
+LIFECYCLE_GBA_FRAMES = 12
+LIFECYCLE_GBA_TOL = (2e-3, 5e-3)  # R entries, t: the background solve against the inline one
+LIFECYCLE_CATCH_UP_TOL = 1e-4     # a keyframe made during the solve keeps its pose to its parent
+LIFECYCLE_PACE_S = 0.05     # 20 Hz, EuRoC's camera rate
+LIFECYCLE_JOIN_S = 2.25     # phone 1 starts with phone 0's frame EDGE_JOIN_AFTER
+LIFECYCLE_RELOC_KFS = 5     # keyframes the tracker needs to relocalize a new client
 RENDER_WORKERS = 3          # processes that render the phases' inputs ahead
+
+PHASE_SECONDS = []          # each phase's wall seconds, in order
 
 FRAMES = 10
 KERNEL_ITERS = 200
@@ -548,7 +625,8 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     torch.cuda.synchronize()
-    log(f"phase {name}: ok ({time.perf_counter() - t0:.2f} s)")
+    PHASE_SECONDS.append(time.perf_counter() - t0)
+    log(f"phase {name}: ok ({PHASE_SECONDS[-1]:.2f} s)")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -965,6 +1043,108 @@ def loop_phase_report(slam, seqs: dict, sync=lambda: None,
         int(mm._next_uid) - kf_before[key] for key, mm in maps.items()))
     slam.deactivate_localization_mode()
     out["events"] = events
+    return out
+
+
+def lifecycle_plan() -> list[tuple[int, float, str | None]]:
+    """(`vi_sequence` index, clock offset in s, fault) of each frame the
+    lifecycle phase sends, in order; the fault names what happens at that
+    frame: "dropped" (the first frame after the dropped ones), "backward",
+    "gap" or "bad_imu"."""
+    plan, offset = [], 0.0
+    lo, hi = LIFECYCLE_DROPPED
+    for i in range(LIFECYCLE_END):
+        if lo <= i < hi:
+            continue
+        fault = None
+        if i == hi:
+            fault = "dropped"
+        elif i == LIFECYCLE_BACKWARD:
+            offset, fault = offset + LIFECYCLE_BACK_S, "backward"
+        elif i == LIFECYCLE_GAP:
+            offset, fault = offset + LIFECYCLE_GAP_S, "gap"
+        elif i == LIFECYCLE_BAD_IMU:
+            fault = "bad_imu"
+        plan.append((i, offset, fault))
+    return plan
+
+
+def lifecycle_report(slam, seq, batches, plan, sync=lambda: None,
+                     stop_after: int | None = None) -> dict:
+    """Drive `plan` (`lifecycle_plan`) through `slam` (an IMU_MONOCULAR `Slam`
+    of either package) over `seq` (a `vi_sequence`) and its per-frame IMU
+    `batches` and read what it did. Each frame's stamp and IMU samples take
+    its clock offset; the samples of dropped frames come with the next frame
+    sent; "bad_imu" sets the flag on the active map before its frame. Per
+    frame sent: tracked or not, the tracker's state, the maps, the active
+    map's keyframes and points, the camera centre, host ms (`sync` before
+    each read of the clock); each `Slam.events` entry and each capacity
+    event (`grow_*` / `drop_*` of any map) with the frame it came at; per
+    map its keyframes and points; the tracked share from each map's first
+    tracked frame; the metric ATE, keyframe scale and gravity tilt of the
+    last map's segment (`evaluation.vi_metrics`). With `stop_after`, the
+    first that many frames of the plan."""
+    frames, slam_events, capacity = [], [], []
+    seen = {}   # id(map) -> capacity events read
+    prev = -1
+    for n, (i, off, fault) in enumerate(plan[:stop_after]):
+        imu = [(t + off, g, a) for j in range(prev + 1, i + 1) for t, g, a in batches[j]]
+        prev = i
+        if fault == "bad_imu":
+            slam.atlas.active.bad_imu = True
+        n_ev = len(slam.events)
+        # the tracker's bindings so far: a reset or respawn rebinds it
+        bound = len(getattr(slam.trackers[0], "_traj_maps", None) or [])
+        stamp = float(seq.frame_ts[i]) + off
+        t0 = time.perf_counter()
+        pose = slam.track_monocular(seq.images[i], stamp, imu=imu)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tracker = slam.trackers[0]
+        for e in slam.events[n_ev:]:
+            slam_events.append(dict(kind=e["event"], frame=n, index=i,
+                                    action=e.get("action")))
+        for m in list(slam.atlas.maps.values()) + [tracker.map]:
+            new = m.events[seen.get(id(m), 0):]
+            seen[id(m)] = len(m.events)
+            capacity += [dict(frame=n, index=i, **e) for e in new]
+        frames.append(dict(
+            index=i, stamp=stamp, fault=fault, bound=bound, tracked=pose is not None,
+            state=tracker.state.name, map_id=int(tracker.map.map_id),
+            maps=len(slam.atlas.maps), keyframes=int(tracker.map.n_keyframes),
+            points=int(tracker.map.n_points), ms=ms,
+            centre=None if pose is None else [float(v) for v in
+                                               -np.asarray(pose[0]).T @ np.asarray(pose[1])]))
+    # the frames each map saw, from its first tracked one
+    tracker = slam.trackers[0]
+    marks = getattr(tracker, "_traj_maps", None) or []
+    segments = [[f for f in frames if f["bound"] == b] for b in range(len(marks) + 1)]
+    after = [f["tracked"] for seg in segments for f in seg[next(
+        (j for j, g in enumerate(seg) if g["tracked"]), len(seg)):]]
+    m = tracker.map
+    out = dict(frames=frames, events=slam_events, capacity=capacity,
+               maps={int(mid): dict(keyframes=int(mm.n_keyframes), points=int(mm.n_points),
+                                    imu_initialized=bool(mm.imu_initialized),
+                                    tiers=[int(mm.cfg.max_keyframes), int(mm.cfg.max_points)])
+                     for mid, mm in slam.atlas.maps.items()},
+               n_maps=len(slam.atlas.maps), tracked_share=sum(after) / max(len(after), 1))
+    # the last map's segment: the trajectory records logged since the
+    # tracker was bound to it
+    full = tracker.trajectory
+    tracker.trajectory = full[marks[-1][0] if marks else 0:]
+    try:
+        poses = slam._full_poses()
+    finally:
+        tracker.trajectory = full
+    seg, ks = segments[-1], m.keyframe_ids()
+    if len(poses) >= 3 and len(ks) >= 3:
+        idx = np.asarray([f["index"] for f in seg])
+        met = vi_metrics(poses, m.kf_R[ks], m.kf_t[ks], m.kf_ts[ks],
+                         np.asarray([f["stamp"] for f in seg]), seq.R_cw[idx], seq.t_cw[idx])
+        out["last_segment"] = dict(frames=len(seg), poses=len(poses), first_index=int(idx[0]),
+                                   **{k: float(met[k]) for k in (
+                                       "ate_metric", "ate_sim3", "kf_scale",
+                                       "gravity_tilt_deg")})
     return out
 
 
@@ -1954,6 +2134,436 @@ def check_async(arun: dict, sync_run: dict, R_gt, t_gt, stamps, smi: str) -> Non
     check_policies(arun["launches"], SLAM_FRAMES, "async mono SLAM")
 
 
+def lifecycle_config() -> SystemConfig:
+    """The lifecycle phase's mono-inertial configuration at the operating
+    point: small map tiers and the 1 s IMU initialization span."""
+    kfs, pts = LIFECYCLE_TIERS
+    return SystemConfig(sensor=Sensor.IMU_MONOCULAR, imu_calib=ImuCalib.create(),
+                        map=MapConfig(kfs, pts, N_FEATURES),
+                        tracker=TrackerConfig(n_features=N_FEATURES, n_levels=N_LEVELS,
+                                              scale_factor=SCALE),
+                        mapper=LocalMapperConfig(**LIFECYCLE_MAPPER))
+
+
+def lifecycle_run(seq, batches, camera: Camera, plain: bool = False,
+                  stop_after: int | None = None) -> dict:
+    """`lifecycle_report` of the port's `Slam` with the shipped vocabulary
+    on the card, global BA inline, the launch counters set to 0 just before
+    and read just after; with `plain` the kernels' plain versions run."""
+    slam = Slam(camera, lifecycle_config(), vocab=load_default_vocabulary())
+    slam.loop_closer.gba_background = False
+    try:
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            report = lifecycle_report(slam, seq, batches, lifecycle_plan(),
+                                      sync=torch.cuda.synchronize, stop_after=stop_after)
+            launches = _build.snapshot()
+    finally:
+        slam.shutdown()
+    return dict(report=report, launches=launches)
+
+
+def check_lifecycle(run: dict, plain: dict, smi: str) -> None:
+    """The faulted run against the JAX package's on the same frames
+    (LIFECYCLE_REFERENCE), and the plain prefix rerun against it."""
+    rep, ref = run["report"], LIFECYCLE_REFERENCE
+    for e in rep["capacity"]:
+        log(f"lifecycle capacity event at frame {e['frame']} (sequence frame {e['index']}): "
+            f"{json.dumps({k: v for k, v in e.items() if k not in ('frame', 'index')})}")
+    log(f"lifecycle events (kind, frame): "
+        f"{[(e['kind'], e['frame'], e['action']) for e in rep['events']]}; JAX package "
+        f"{[(e['kind'], e['frame'], e['action']) for e in ref['events']]}")
+    log(f"lifecycle maps {rep['n_maps']} (JAX package {ref['n_maps']}): "
+        f"{json.dumps(rep['maps'], sort_keys=True)}; tracked share {rep['tracked_share']:.3f} "
+        f"(JAX package {ref['tracked_share']:.3f}); last map's segment "
+        f"{json.dumps(rep.get('last_segment'))} (JAX package {json.dumps(ref['last_segment'])})")
+    log(f"launches on the lifecycle path: {json.dumps(run['launches'], sort_keys=True)}")
+    v = np.asarray([f["ms"] for f in rep["frames"]])
+    log(f"lifecycle track_monocular ms/frame over {len(v)} frames: p50 "
+        f"{np.percentile(v, 50):.1f}, p90 {np.percentile(v, 90):.1f}, max {v.max():.1f} "
+        f"(host wall clock, synchronized; {smi})")
+    kinds = [(e["kind"], e["action"]) for e in rep["events"]]
+    if kinds != [(e["kind"], e["action"]) for e in ref["events"]]:
+        raise AssertionError("the lifecycle events differ from the JAX package's")
+    if any(abs(a["frame"] - b["frame"]) > LIFECYCLE_FRAME_TOL
+           for a, b in zip(rep["events"], ref["events"])):
+        raise AssertionError(f"a lifecycle event is more than {LIFECYCLE_FRAME_TOL} frames "
+                             f"from the JAX package's")
+    cap = [(e["kind"], e["map_id"]) for e in rep["capacity"]]
+    if not any(k.startswith("grow_") for k, _ in cap):
+        raise AssertionError("no map grew a tier on the card")
+    if cap != [(e["kind"], e["map_id"]) for e in ref["capacity"]] or any(
+            abs(a["frame"] - b["frame"]) > LIFECYCLE_FRAME_TOL
+            for a, b in zip(rep["capacity"], ref["capacity"])):
+        raise AssertionError("the capacity events differ from the JAX package's")
+    if rep["n_maps"] != ref["n_maps"]:
+        raise AssertionError(f"{rep['n_maps']} maps, the JAX package {ref['n_maps']}")
+    if rep["tracked_share"] < LIFECYCLE_SHARE:
+        raise AssertionError(f"tracked share {rep['tracked_share']:.3f}")
+    bound = LIFECYCLE_ATE_MARGIN * ref["last_segment"]["ate_metric"]
+    if not rep.get("last_segment", {}).get("ate_metric", np.inf) <= bound:
+        raise AssertionError(f"the last map's metric ATE over {bound} m")
+    sent = len(rep["frames"])
+    check_policies(run["launches"], sent, "lifecycle")
+    # the plain prefix: up to and including the respawn
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain-kernel lifecycle run launched kernels: "
+                             f"{json.dumps(plain['launches'], sort_keys=True)}")
+    pre = plain["report"]
+    n = len(pre["frames"])
+    head = rep["frames"][:n]
+    d_centre = max((float(np.abs(np.subtract(a["centre"], b["centre"])).max())
+                    for a, b in zip(head, pre["frames"]) if a["centre"] and b["centre"]),
+                   default=0.0)
+    same = ([(f["tracked"], f["maps"], f["keyframes"]) for f in head]
+            == [(f["tracked"], f["maps"], f["keyframes"]) for f in pre["frames"]]
+            and [(e["kind"], e["frame"]) for e in rep["events"] if e["frame"] < n]
+            == [(e["kind"], e["frame"]) for e in pre["events"]])
+    log(f"kernel vs plain lifecycle run on the card over its first {n} frames (the "
+        f"respawn included): events {[(e['kind'], e['frame']) for e in pre['events']]}, maps "
+        f"{pre['frames'][-1]['maps']} vs {head[-1]['maps']}, tracked, maps and keyframes per "
+        f"frame equal {same}, max camera-centre diff {d_centre:.3e} m")
+    if not same or d_centre > AGREE_CENTRE_TOL:
+        raise AssertionError("kernel and plain lifecycle runs disagree")
+
+
+def gba_views_of_loop() -> tuple:
+    """Client 1's views after the vocabulary phase (`loop_sequences`): its
+    relocalization path carried on LIFECYCLE_GBA_FRAMES steps of 0.05 rad,
+    the radius widening 5 cm a step, so the views are new ones.
+    (images, R_cw, t_cw, stamps)."""
+    a0 = -LOOP_ARC / 2
+    # noise seeds and stamps after those of `loop_sequences`' sessions
+    first = LOOP_FRAMES + MERGE_FRAMES + len(RELOC_ANGLES) + LOCALIZE_FRAMES
+    last = 2 * SESSION_GAP_S + (LOOP_FRAMES + MERGE_FRAMES + len(RELOC_ANGLES) - 3) / 20.0
+    views = [orbit_views([a0 + RELOC_ANGLES[-1] + 0.05 * (j + 1)], W, H, CAMERA,
+                         radius=2.0 + 0.05 * (j + 1), first_seed=first + j)
+             for j in range(LIFECYCLE_GBA_FRAMES)]
+    imgs, R, t = (np.concatenate(x) for x in zip(*views))
+    return imgs, R, t, last + 0.05 * (1 + np.arange(LIFECYCLE_GBA_FRAMES))
+
+
+def background_gba(slam, views) -> dict:
+    """A global BA on its thread over client 1's map (the vocabulary phase's
+    merged map), while client 1 tracks `views`; then `join()`. The solve's
+    snapshot is copied under the same lock hold, and the map just before
+    and after the write-back is kept, so the catch-up of the keyframes made
+    meanwhile and the inline solve on the same snapshot can be checked. The
+    solve's first block waits until client 1 has made a keyframe (as
+    tests/test_torch_loop.py's catch-up test holds its solve), so a
+    keyframe is always made during the solve. Timing decides the rest, so
+    this has no plain rerun."""
+    m = slam.trackers[1].map
+    fixed = int(m.keyframe_ids()[0])
+    gba = GlobalBA(slam.camera, iters_per_block=5, n_blocks=4)
+    snap, wb, errors = {}, {}, []
+    take, write = gba._snapshot, gba._write_back
+    made = threading.Event()
+    solve = global_ba.bundle_adjust
+
+    def held(*args, **kwargs):  # the first block waits for a keyframe
+        if "open" not in snap:
+            made.wait(60.0)
+            snap["open"] = time.perf_counter()
+        return solve(*args, **kwargs)
+
+    def snapshot(mm):
+        with mm.lock:
+            snap["copy"] = convert.map_state(mm, device=slam.device)
+            snap["t"] = time.perf_counter()
+            snap["snap"] = take(mm)
+        return snap["snap"]
+
+    def poses(mm):
+        return {int(mm.kf_uid[k]): (mm.kf_R[k].copy(), mm.kf_t[k].copy(),
+                                    int(mm.kf_uid[mm.kf_prev[k]]) if mm.kf_prev[k] >= 0 else -1)
+                for k in mm.keyframe_ids()}
+
+    def write_back(mm, sn, R_new, t_new, pos_new):
+        with mm.lock:
+            wb["before"] = poses(mm)
+            wb["solve"] = (R_new.copy(), t_new.copy())
+            write(mm, sn, R_new, t_new, pos_new)
+            wb["after"] = poses(mm)
+            wb["t"] = time.perf_counter()
+
+    gba._snapshot, gba._write_back = snapshot, write_back
+    hook = threading.excepthook
+    threading.excepthook = lambda a: errors.append(repr(a.exc_value))
+    global_ba.bundle_adjust = held
+    imgs, _, _, stamps = views
+    frames = []
+    uid0 = int(m._next_uid)
+    try:
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        gba.request(m, fixed, background=True)
+        for i in range(len(stamps)):
+            t1 = time.perf_counter()
+            pose = slam.track_monocular(imgs[i], float(stamps[i]), client_id=1)
+            torch.cuda.synchronize()
+            frames.append(dict(start=t1 - t0, ms=(time.perf_counter() - t1) * 1e3,
+                               tracked=pose is not None, made=int(m._next_uid) - uid0,
+                               solving=gba.running))
+            if int(m._next_uid) > uid0:
+                made.set()
+        made.set()
+        gba.join()
+        launches = _build.snapshot()
+    finally:
+        global_ba.bundle_adjust = solve
+        threading.excepthook = hook
+    if "t" not in wb:
+        raise AssertionError(f"the background global BA wrote nothing back: finished "
+                             f"{gba.n_finished}, aborted {gba.n_aborted}, errors {errors}")
+    # the inline solve on the same snapshot
+    ref = GlobalBA(slam.camera, iters_per_block=5, n_blocks=4)
+    ref.request(snap["copy"], fixed, background=False)
+    kfs = snap["snap"]["kfs"]
+    R_bg, t_bg = wb["solve"]
+    d_R = float(np.abs(R_bg - snap["copy"].kf_R[kfs]).max())
+    d_t = float(np.abs(t_bg - snap["copy"].kf_t[kfs]).max())
+    # keyframes made during the solve keep their pose relative to the
+    # parent they were caught up through
+    in_snap = set(int(u) for u in snap["snap"]["kf_uid"])
+    caught, worst = [], 0.0
+    for uid, (R1, t1, puid) in wb["after"].items():
+        if uid in in_snap or puid not in wb["after"]:
+            continue
+        (R0, t0_, _), (Rp0, tp0, _), (Rp1, tp1, _) = (
+            wb["before"][uid], wb["before"][puid], wb["after"][puid])
+        R_rel0, R_rel1 = R0 @ Rp0.T, R1 @ Rp1.T
+        worst = max(worst, float(np.abs(R_rel1 - R_rel0).max()),
+                    float(np.abs((t1 - R_rel1 @ tp1) - (t0_ - R_rel0 @ tp0)).max()))
+        caught.append(uid)
+    return dict(solve_s=wb["t"] - snap["open"], held_s=snap["open"] - snap["t"],
+                finished=gba.n_finished, aborted=gba.n_aborted, errors=errors,
+                snapshot_kfs=len(kfs), d_R=d_R, d_t=d_t, caught_up=caught, catch_up_err=worst,
+                frames=frames, launches=launches, made=int(m._next_uid) - uid0)
+
+
+def check_background_gba(run: dict, smi: str) -> None:
+    """The background solve finished without error, caught the keyframes
+    made meanwhile up, and agrees with the inline solve; client 1 tracked
+    every frame."""
+    fr = run["frames"]
+    during = [f["ms"] for f in fr if f["solving"]]
+    after = [f["ms"] for f in fr if not f["solving"]]
+    log(f"background global BA over {run['snapshot_kfs']} keyframes: solve {run['solve_s']:.3f} "
+        f"s of wall time after its first block waited {run['held_s']:.3f} s for a keyframe; "
+        f"finished {run['finished']}, aborted {run['aborted']}, thread errors "
+        f"{run['errors']}; against the inline solve on the same snapshot: max |dR| "
+        f"{run['d_R']:.3e}, max |dt| {run['d_t']:.3e} (bounds {LIFECYCLE_GBA_TOL}); "
+        f"{run['made']} keyframes made over {len(fr)} frames, caught up through their "
+        f"parent {run['caught_up']} (max error {run['catch_up_err']:.3e}); tracked "
+        f"{sum(f['tracked'] for f in fr)}/{len(fr)}; launches "
+        f"{json.dumps(run['launches'], sort_keys=True)}")
+    log(f"client 1's track_monocular ms/frame while the solve ran (or waited): "
+        f"{[round(x, 1) for x in during]}; "
+        f"after it: p50 {np.percentile(after, 50) if after else float('nan'):.1f} over "
+        f"{len(after)} (host wall clock, synchronized; {smi})")
+    if run["errors"] or run["finished"] != 1 or run["aborted"]:
+        raise AssertionError(f"the background global BA failed: {run}")
+    if not (run["d_R"] <= LIFECYCLE_GBA_TOL[0] and run["d_t"] <= LIFECYCLE_GBA_TOL[1]):
+        raise AssertionError("the background global BA differs from the inline solve")
+    if not run["caught_up"] or run["catch_up_err"] > LIFECYCLE_CATCH_UP_TOL:
+        raise AssertionError("no keyframe made during the solve was caught up, or one "
+                             "moved against its parent")
+    if sum(f["tracked"] for f in fr) < len(fr) or len(fr) < 10:
+        raise AssertionError("client 1 did not track every frame during the global BA")
+
+
+def paced_edge_run(seq, batches) -> dict:
+    """The edge phase's server and phones with each phone on its own thread,
+    a packet every LIFECYCLE_PACE_S whatever the replies: phone 0 frames
+    0..EDGE_FRAMES-1, phone 1 the revisit (EDGE_CLIENT1) from
+    LIFECYCLE_JOIN_S on, once client 0's map holds LIFECYCLE_RELOC_KFS
+    keyframes (a new client on a younger map would initialize a map of its
+    own in the shared one). Each frame is extracted on the card ahead, at
+    both budgets, and a phone sends the one its last CmdPkt asks for. Then
+    one acoustic round. Timing-dependent: no plain rerun."""
+    camera, cfg, _ = settings_config(euroc_yaml(imu=True, n_features=EDGE_FEATURES),
+                                     "imu_monocular")
+    slam = Slam(camera, cfg, vocab=load_default_vocabulary())
+    slam.loop_closer.gba_background = False
+    items = {0: [(i, i) for i in range(EDGE_FRAMES)],
+             1: [(idx, j) for j, idx in enumerate(EDGE_CLIENT1)]}
+    _build.launches.clear()
+    ahead = {}
+    for p, its in items.items():
+        for idx, fid in its:
+            ahead[p, fid] = {b: wire_arrays(extract_features(
+                seq.images[idx], n_features=b, n_levels=N_LEVELS, scale=SCALE))
+                for b in (N_FEATURES_INIT, N_FEATURES_TRACKING)}
+    torch.cuda.synchronize()
+    phone_launches = _build.snapshot()
+    _build.launches.clear()
+    server = EdgeServer(slam.track_edge, host="127.0.0.1", slam_port=0, acoustic_port=0,
+                        max_clients=2)
+    records, lock, lane = [], threading.Lock(), threading.local()
+    inner, compute = server.track_fn, slam.track_features
+
+    def timed_compute(*args, **kwargs):  # inside track_edge's lock
+        n_reloc = sum(e["event"] == "relocalized" for e in slam.events)
+        t0 = time.perf_counter()
+        out = compute(*args, **kwargs)
+        torch.cuda.synchronize()
+        lane.ms = (time.perf_counter() - t0) * 1e3
+        lane.reloc = sum(e["event"] == "relocalized" for e in slam.events) > n_reloc
+        return out
+
+    def timed(cid, pkt):
+        t0 = time.perf_counter()
+        out = inner(cid, pkt)
+        tr = slam.trackers[cid]
+        with lock:
+            records.append(dict(client=cid, frame_id=int(pkt.frame_id), ok=out is not None,
+                                state=tr.state.name, ms=lane.ms, relocalized=lane.reloc,
+                                wait_ms=(time.perf_counter() - t0) * 1e3 - lane.ms))
+        return out
+
+    slam.track_features, server.track_fn = timed_compute, timed
+    phones, sends, errors = {}, {0: [], 1: []}, []
+    gate = {}
+    try:
+        for p in (0, 1):
+            phones[p] = FakePhone("127.0.0.1", server.slam_port, server.acoustic_port, p)
+            deadline = time.monotonic() + 30.0
+            while len(server.lanes) <= p:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phone {p}: the server made no lane")
+                time.sleep(0.01)
+
+        def stream(p, t_start):
+            try:
+                ph = phones[p]
+                if p == 1:  # LIFECYCLE_JOIN_S in, and a map client 1 can relocalize in
+                    while time.monotonic() < t_start or \
+                            slam.trackers[0].map.n_keyframes < LIFECYCLE_RELOC_KFS:
+                        if time.monotonic() > t_start + EDGE_WAIT_S:
+                            raise AssertionError("client 0's map never reached "
+                                                 f"{LIFECYCLE_RELOC_KFS} keyframes")
+                        time.sleep(0.005)
+                    gate["phone1_s"] = time.monotonic() - t0
+                    t_start = time.monotonic()
+                for k, (idx, fid) in enumerate(items[p]):
+                    while time.monotonic() < t_start + k * LIFECYCLE_PACE_S:
+                        time.sleep(0.001)
+                    budget = ph.feature_budget if ph.budgets else N_FEATURES_INIT
+                    uv, desc = ahead[p, fid][budget]
+                    off = EDGE_CLIENT1_OFFSET_S if p == 1 else 0.0
+                    imu = batches[idx]
+                    ts_ns = round((float(seq.frame_ts[idx]) + off) * 1e9)
+                    sends[p].append(dict(frame_id=fid, index=idx, t=time.monotonic(),
+                                         budget=budget))
+                    ph.send_frame(fid, ts_ns, uv, desc,
+                                  np.asarray([round((s[0] + off) * 1e9) for s in imu], np.int64),
+                                  np.asarray([s[1] for s in imu], np.float32).reshape(-1, 3),
+                                  np.asarray([s[2] for s in imu], np.float32).reshape(-1, 3))
+            except Exception as e:  # noqa: BLE001  (raised by the caller)
+                errors.append(repr(e))
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=stream, args=(p, t0 + (LIFECYCLE_JOIN_S if p else 0)))
+                   for p in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(EDGE_WAIT_S)
+        # every packet tracked, skipped or dropped, and every tracked one answered
+        deadline = time.monotonic() + EDGE_WAIT_S
+        while True:
+            st = [ln.stats for ln in server.lanes]
+            done = all(s.frames_received == len(sends[p]) and s.frames_received
+                       == s.frames_tracked + s.frames_skipped + s.frames_dropped
+                       and len(phones[p].poses) == s.frames_tracked
+                       for p, s in enumerate(st))
+            if done or any(ln.errors for ln in server.lanes):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the lanes did not drain: {st}")
+            time.sleep(0.01)
+        wall_s = time.monotonic() - t0
+        lane_errors = [repr(e) for ln in server.lanes for e in ln.errors]
+        stats = [dict(vars(ln.stats)) for ln in server.lanes]
+        replies = {p: list(ph.reply_times) for p, ph in phones.items()}
+        acoustic_out = _edge_acoustic_round(
+            server, phones, [dict(phone=p, index=s["index"]) for p in (0, 1) for s in sends[p]],
+            seq, fuse_acoustic, slam.device)
+        torch.cuda.synchronize()
+        launches = _build.snapshot()
+    finally:
+        for ph in phones.values():
+            ph.close()
+        server.close()
+        server.track_fn, slam.track_features = inner, compute
+        slam.shutdown()
+    return dict(records=records, sends=sends, replies=replies, stats=stats, errors=errors,
+                lane_errors=lane_errors, acoustic=acoustic_out, launches=launches,
+                phones=phone_launches, wall_s=wall_s, phone1_s=gate.get("phone1_s"),
+                events=[e["event"] for e in slam.events])
+
+
+def check_paced_edge(run: dict, smi: str) -> None:
+    """Per lane: sent, dropped, skipped, answered; reply delays; order;
+    client 0 initialized, client 1 relocalized and then tracked."""
+    recs = run["records"]
+    ok = True
+    for p in (0, 1):
+        mine = [r for r in recs if r["client"] == p]
+        st, sends, reps = run["stats"][p], run["sends"][p], run["replies"][p]
+        sent_at = {s["frame_id"]: s["t"] for s in sends}
+        delays = np.asarray([(t - sent_at[r["frame_id"]]) * 1e3 for r, t in zip(mine, reps)])
+        ms = np.asarray([r["ms"] for r in mine])
+        gaps = np.diff([s["t"] for s in sends]) * 1e3
+        log(f"paced lane {p}: sent {len(sends)} (interval p50 "
+            f"{np.percentile(gaps, 50) if len(gaps) else 0:.1f} ms, max "
+            f"{gaps.max() if len(gaps) else 0:.1f}), received {st['frames_received']}, dropped by "
+            f"the 64-deep queue {st['frames_dropped']}, skipped by the 1-in-{K_TRACK} rule "
+            f"{st['frames_skipped']}, tracked {st['frames_tracked']}, answered {len(reps)}; reply "
+            f"delay ms p50 {np.percentile(delays, 50):.1f}, p90 {np.percentile(delays, 90):.1f}, "
+            f"max {delays.max():.1f}; track_edge ms p50 {np.percentile(ms, 50):.1f}, p90 "
+            f"{np.percentile(ms, 90):.1f}; waiting for the other lane ms p50 "
+            f"{np.percentile([r['wait_ms'] for r in mine], 50):.1f} (host wall clock, "
+            f"synchronized; {smi})")
+        log(f"paced lane {p} tracked frames: "
+            f"{[(r['frame_id'], r['ok']) for r in mine]}")
+        ids = [r["frame_id"] for r in mine]
+        ok &= ids == sorted(ids) and len(set(ids)) == len(ids) and len(reps) == len(mine)
+    ac = run["acoustic"]
+    log(f"paced edge: {run['wall_s']:.1f} s from the first packet to the last reply; phone 1 "
+        f"started {run['phone1_s']:.2f} s in; events {run['events']}; phone errors "
+        f"{run['errors']}, lane errors {run['lane_errors']}; acoustic round: cal_acoustic "
+        f"{ac.get('dists')} for a true {ac.get('true_m')} m, residual {ac.get('residual_m')} m; "
+        f"launches: phones (ahead, both budgets) {json.dumps(run['phones'], sort_keys=True)}, "
+        f"server {json.dumps(run['launches'], sort_keys=True)}")
+    if run["errors"] or run["lane_errors"]:
+        raise AssertionError("a paced phone or lane raised")
+    if not ok:
+        raise AssertionError("a paced lane's replies are out of frame order or missing")
+    r0 = [r for r in recs if r["client"] == 0]
+    r1 = [r for r in recs if r["client"] == 1]
+    if not any(r["ok"] for r in r0):
+        raise AssertionError("client 0 did not initialize")
+    j = next((k for k, r in enumerate(r1) if r["ok"]), -1)
+    if j < 0 or not r1[j]["relocalized"] or not r1[j + 1:] \
+            or not all(r["ok"] for r in r1[j + 1:]):
+        raise AssertionError("client 1 did not relocalize and then track")
+    if not (abs(ac["dists"][0] - ac["true_m"]) <= EDGE_ACOUSTIC_TOL
+            and ac["residual_m"] < EDGE_FUSE_RESIDUAL and ac["rewritten"]):
+        raise AssertionError(f"the acoustic round failed: {ac}")
+    for pol in ("tracker", "init", "triangulation", "fuse", "reloc"):
+        if run["launches"].get(f"{hamming.KERNEL}[{pol}]", 0) < 1:
+            raise AssertionError(f"K1 was not launched by the {pol} policy on the server")
+    n_frames = sum(len(s) for s in run["sends"].values())
+    if run["launches"].get(patch.KERNEL, 0) != 0 or \
+            run["phones"].get(patch.KERNEL, 0) != 2 * n_frames:
+        raise AssertionError("K2 ran on the server, or not twice a phone frame ahead")
+
+
 def free_port() -> int:
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
@@ -2158,6 +2768,7 @@ def start_renders(runner_root: str):
         stereo_vi=(vi_sequence, (STEREO_VI_FRAMES, W, H, f0),
                    dict(pinhole_dist=d0, T_c1_c2=EUROC_T_C1_C2, right=(f1, d1))),
         vocab=(loop_sequences, (), {}),
+        gba=(gba_views_of_loop, (), {}),
         runner=(write_runner_sequences, (runner_root,), {}))
     # one thread each: the workers share the host with this process's
     # host-bound phases (they spawn in the submits, with this environment)
@@ -2521,7 +3132,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
     with phase("mono SLAM at full width"):
         imgs, R_gt, t_gt, stamps = rendered(futures, "mono", f"{SLAM_FRAMES} frames at {W}x{H}")
         mono_frames = imgs, R_gt, t_gt, stamps
-        run = mono_slam(imgs, stamps, camera)
+        run = mono_slam(imgs, stamps, camera, snapshot_at=MONO_PREFIX)
         slam_launches = run["launches"]
         init = run["init"]
         after = run["tracked"][init:] if init >= 0 else []
@@ -2543,20 +3154,9 @@ def phases(futures: dict, pool, runner_root: str) -> int:
             raise AssertionError(f"ATE {ate} m over {REFERENCE_ATE * ATE_MARGIN} m")
         check_policies(slam_launches, SLAM_FRAMES, "mono SLAM")
 
-        plain = mono_slam(imgs, stamps, camera, plain=True)
-        if any(plain["launches"].values()):
-            raise AssertionError(f"the plain-kernel SLAM run launched kernels: "
-                                 f"{json.dumps(plain['launches'], sort_keys=True)}")
-        d_centre = max(float(np.abs(a[2] - b[2]).max())
-                       for a, b in zip(run["poses"], plain["poses"]))
-        log(f"kernel vs plain SLAM on the card: init frame {init} vs {plain['init']}, "
-            f"keyframes {run['keyframes']} vs {plain['keyframes']}, points "
-            f"{run['points']} vs {plain['points']}, max camera-centre diff "
-            f"{d_centre:.3e} m")
-        if (plain["init"] != init or plain["keyframes"] != run["keyframes"]
-                or plain["points"] != run["points"]
-                or len(plain["poses"]) != len(run["poses"]) or d_centre > AGREE_CENTRE_TOL):
-            raise AssertionError("kernel and plain SLAM runs disagree")
+        n = MONO_PREFIX
+        plain = mono_slam(imgs[:n], stamps[:n], camera, plain=True, snapshot_at=n)
+        check_prefix_agree(run, plain, "mono SLAM")
 
     with phase("mono-inertial SLAM at full width"):
         seq = rendered(futures, "vi", f"{VI_FRAMES} frames at {W}x{H} with 200 Hz IMU")
@@ -2650,7 +3250,8 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         del voc_plain
 
     with phase("atlas save and load"):
-        atlas_round_trip(voc.pop("slam"), seqs, camera)
+        voc_slam = voc.pop("slam")  # the lifecycle phase's global BA runs on its map
+        atlas_round_trip(voc_slam, seqs, camera)
 
     with phase("edge server at full width"):
         plan = edge_plan()
@@ -2674,6 +3275,26 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         sharded_ba_check(run["map"], camera, smi)
         dist_run = multihost_run()
         check_multihost(dist_run, smi)
+
+    with phase("lifecycle: faults and tiers"):
+        t0 = time.perf_counter()
+        life = lifecycle_run(seq, batches, camera)
+        log(f"lifecycle faulted run: {time.perf_counter() - t0:.1f} s")
+        respawn = next(n for n, (_, _, f) in enumerate(lifecycle_plan()) if f == "backward")
+        life_plain = lifecycle_run(seq, batches, camera, plain=True, stop_after=respawn + 1)
+        check_lifecycle(life, life_plain, smi)
+        del life_plain
+
+    with phase("lifecycle: background global BA"):
+        views = rendered(futures, "gba", f"{LIFECYCLE_GBA_FRAMES} new views of client 1")
+        gba_run = background_gba(voc_slam, views)
+        voc_slam.shutdown()
+        check_background_gba(gba_run, smi)
+        del voc_slam
+
+    with phase("lifecycle: two paced edge lanes"):
+        paced = paced_edge_run(seq, batches)
+        check_paced_edge(paced, smi)
 
     with phase("runners on written sequences"):
         runner_seqs = rendered(futures, "runner", "the runners' sequences, written to disk,")
@@ -2706,6 +3327,10 @@ def phases(futures: dict, pool, runner_root: str) -> int:
                            "phones": edge["phones"].get(patch.KERNEL, 0)},
             launches_multihost=[r.get(patch.KERNEL, 0) for r in dist_run["launches"]],
             launches_runner={key: r.get(patch.KERNEL, 0) for key, r in runner.items()},
+            launches_lifecycle={"faults": life["launches"].get(patch.KERNEL, 0),
+                                "gba": gba_run["launches"].get(patch.KERNEL, 0),
+                                "lanes_phones": paced["phones"].get(patch.KERNEL, 0),
+                                "lanes_server": paced["launches"].get(patch.KERNEL, 0)},
             max_abs_err=k2_err, **k2_times(atlas, y0, x0))
         # K1 at one captured mask of each policy: the mono run's four, the
         # stereo run's row band, and one fisheye pair's all-valid mask
@@ -2756,6 +3381,14 @@ def phases(futures: dict, pool, runner_root: str) -> int:
             launches_by_policy_runner={
                 key: {k.split("[")[1][:-1]: v for k, v in sorted(r.items())
                       if k.startswith(f"{hamming.KERNEL}[")} for key, r in runner.items()},
+            launches_lifecycle={key: r.get(hamming.KERNEL, 0) for key, r in (
+                ("faults", life["launches"]), ("gba", gba_run["launches"]),
+                ("lanes_server", paced["launches"]))},
+            launches_by_policy_lifecycle={
+                key: {k.split("[")[1][:-1]: v for k, v in sorted(r.items())
+                      if k.startswith(f"{hamming.KERNEL}[")}
+                for key, r in (("faults", life["launches"]), ("gba", gba_run["launches"]),
+                               ("lanes_server", paced["launches"]))},
             max_abs_err=k1_err, **k1, policies=policies)
         for kv in kernels.values():
             log(f"{kv['name']}: device {kv['ms'] * 1e3:.2f} us (bound "
@@ -2801,6 +3434,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
                 f"{device_ms(lambda: hamming.masked_top2(a, bw, wmask), KERNEL_ITERS) * 1e3:.2f}"
                 f" us; exact vs plain")
 
+    log(f"{len(PHASE_SECONDS)} phases: {sum(PHASE_SECONDS):.1f} s")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,8 @@ POLL_S = 0.2  # socket timeout and queue wait: how often a loop re-checks livene
 class LaneStats:
     frames_received: int = 0
     frames_tracked: int = 0
+    frames_dropped: int = 0   # the frame queue stayed full (backpressure)
+    frames_skipped: int = 0   # left untracked by the 1-in-k rule
     recv_times: list = field(default_factory=list)
     send_times: list = field(default_factory=list)
 
@@ -102,8 +104,8 @@ class ClientLane:
                     self.stats.recv_times.append(time.monotonic())
                     try:
                         self.frame_q.put(pkt, timeout=1.0)
-                    except queue.Full:
-                        pass  # dropped under backpressure
+                    except queue.Full:  # dropped under backpressure
+                        self.stats.frames_dropped += 1
         except OSError:
             pass
         finally:
@@ -120,6 +122,7 @@ class ClientLane:
             # secondary clients not (re)initializing track 1 frame in k
             if self.id != 0 and not self.init_flag and \
                     pkt.frame_id % K_TRACK != 0:
+                self.stats.frames_skipped += 1
                 continue
             t0 = time.monotonic()
             try:
