@@ -145,6 +145,7 @@ class Slam:
         self.reloc_sample_fn = None
         self._localization_only = False
         self.trackers: dict[int, Tracker] = {}
+        self._frames_in: dict[int, int] = {}  # frames handed in, per client
         self._lock = threading.Lock()
         self._edge_lock = threading.Lock()  # one edge lane in `track_edge` at a time
         self.events: list[dict] = []  # structured event log
@@ -225,44 +226,40 @@ class Slam:
         [0, 255] (numpy or tensor) and the IMU samples since the last frame
         -> the world->camera pose (R, t), or None while uninitialized or
         lost."""
-        tracker = self.trackers[client_id]
-        if imu is not None:
-            tracker.queue_imu(imu)
-        out = tracker.process_image(img, ts)
-        self._after_track(tracker)
-        return out
+        return self._track(client_id, imu, "process_image", img, ts)
 
     def track_stereo(self, img_left, img_right, ts: float, imu=None,
                      client_id: int = 0):
         """Reference `System::TrackStereo`: a (H, W) pair, raw or rectified
         as the tracker's config says, and the IMU samples since the last
         frame -> the world->camera pose (R, t), or None."""
-        tracker = self.trackers[client_id]
-        if imu is not None:
-            tracker.queue_imu(imu)
-        out = tracker.process_stereo(img_left, img_right, ts)
-        self._after_track(tracker)
-        return out
+        return self._track(client_id, imu, "process_stereo", img_left, img_right, ts)
 
     def track_rgbd(self, img, depth, ts: float, imu=None, client_id: int = 0,
                    depth_factor: float = 1.0):
         """Reference `System::TrackRGBD`: an image and its registered depth
         map (times `depth_factor` gives metres; TUM's uint16 PNG takes
         1/5000) -> the world->camera pose (R, t), or None."""
-        tracker = self.trackers[client_id]
-        if imu is not None:
-            tracker.queue_imu(imu)
-        out = tracker.process_rgbd(img, depth, ts, depth_factor=depth_factor)
-        self._after_track(tracker)
-        return out
+        return self._track(client_id, imu, "process_rgbd", img, depth, ts,
+                           depth_factor=depth_factor)
 
     def track_features(self, feats, ts: float, client_id: int = 0, imu=None):
         """Track from pre-extracted `FrameFeatures`."""
+        return self._track(client_id, imu, "process_features", feats, ts)
+
+    def _track(self, client_id: int, imu, process: str, *args, **kw):
+        """One frame of a client: queue its IMU samples, run the tracker's
+        `process` entry, then the failure ladder, in one `slam.frame` stage
+        whose fields name the client and the frame (its index among the
+        frames this `Slam` was handed for the client)."""
         tracker = self.trackers[client_id]
-        if imu is not None:
-            tracker.queue_imu(imu)
-        out = tracker.process_features(feats, ts)
-        self._after_track(tracker)
+        frame = self._frames_in.get(client_id, 0)
+        self._frames_in[client_id] = frame + 1
+        with timing.stage("slam.frame", client=client_id, frame=frame):
+            if imu is not None:
+                tracker.queue_imu(imu)
+            out = getattr(tracker, process)(*args, **kw)
+            self._after_track(tracker)
         return out
 
     def track_edge(self, client_id: int, pkt):

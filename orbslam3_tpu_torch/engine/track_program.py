@@ -3,7 +3,7 @@
 Port of `orbslam3_tpu/engine/track_program.py:fused_track_pose`. The
 reference runs the ladder as one `lax.while_loop`; here it is a Python loop
 over the same stages, which reads one match count back from the device per
-attempt:
+attempt (`timing` counts them, "track.ladder_attempt"):
   0: narrow window from the predicted pose;
   1: wide window from the predicted pose;
   2: extra-wide window from the last known-good pose (only if allowed);
@@ -21,6 +21,7 @@ import torch
 
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.opt.pose_gn import optimize_pose
+from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.vision import matcher
 
 
@@ -73,6 +74,7 @@ def fused_track_pose(
     ar = torch.arange(cap, device=dev)
 
     def attempt(R0, t0, radius):
+        timing.count("track.ladder_attempt")
         fidx, _dist, matched, nm, fr = matcher.search_by_projection(
             mp_pos, mp_planes, mp_valid, R0, t0, camera,
             f_uv, f_planes, f_octave, f_valid, radius,

@@ -235,7 +235,6 @@ class Tracker:
             return None
         stamps = np.asarray([t0] + [q[0] for q in take])
         dt = np.maximum(np.diff(stamps), 0.0).astype(np.float32)
-        timing.count("dispatch.preintegrate")
         return preint.preintegrate(
             self._t(np.stack([q[2] for q in take])), self._t(np.stack([q[1] for q in take])),
             dt, self._t(self._current_bias()), self.imu_calib)
@@ -251,7 +250,6 @@ class Tracker:
         if (self._pre_cur is None or self._vel_w is None
                 or not self.map.imu_initialized):
             return None
-        timing.count("dispatch.imu_deltas")
         dR, dV, dP, dT = (x.cpu().numpy() for x in preint.corrected_deltas(
             self._pre_cur, self._t(self._current_bias())))
         dT = float(dT)
@@ -285,7 +283,6 @@ class Tracker:
 
     def process_image(self, img, ts: float):
         with timing.stage("track.extract"):
-            timing.count("dispatch.extract")
             feats = self._extract(img)
         return self.process_features(feats, ts)
 
@@ -316,7 +313,6 @@ class Tracker:
         triangulation on a fisheye pair."""
         cfg = self.cfg
         with timing.stage("track.extract"):
-            timing.count("dispatch.extract")
             if self._rectify is not None:
                 img_left, img_right = self._rectify(img_left, img_right)
             featsL = self._extract(img_left)
@@ -344,7 +340,6 @@ class Tracker:
         scaled by `depth_factor` to metres, read at the keypoints, and the
         virtual right coordinate u - bf / z for the stereo rows."""
         with timing.stage("track.extract"):
-            timing.count("dispatch.extract")
             feats = self._extract(img)
         if isinstance(depth_map, torch.Tensor):
             depth_map = depth_map.to(self.device, torch.float32)
@@ -624,7 +619,7 @@ class Tracker:
             R_pred = self._vel_R @ self.R_cw
             t_pred = self._vel_R @ self.t_cw + self._vel_t
 
-        with m.lock:
+        with timing.stage("track.local_map"), m.lock:
             local_ids = self._local_map_points()
             if len(local_ids) == 0:
                 return False
@@ -639,43 +634,42 @@ class Tracker:
             mp_normal = self._t(m.mp_normal[ids_p])
             mp_min_d = self._t(m.mp_min_dist[ids_p])
             mp_max_d = self._t(m.mp_max_dist[ids_p])
-        valid_pt = self._t(valid_p)
+            valid_pt = self._t(valid_p)
 
         # the retry ladder (narrow -> wide -> recently-lost wide -> local
         # refinement) with its pose GN; K1 reads the packed words as stored
         stereo = {}
         if self._cur_uright is not None and cfg.bf > 0:
             stereo = dict(u_right=self._t(self._cur_uright, torch.float32), bf=cfg.bf)
-        timing.count("dispatch.track_fused")
-        success, res = fused_track_pose(
-            mp_pos, mp_words, valid_pt, mp_normal, mp_min_d, mp_max_d,
-            self.camera, feats.uv, feats.desc, feats.octave, feats.valid,
-            self._t(R_pred), self._t(t_pred), self._t(self.R_cw), self._t(self.t_cw),
-            self.state == TrackingState.RECENTLY_LOST,
-            [cfg.proj_radius, cfg.proj_radius_wide, cfg.proj_radius_wide * 2,
-             cfg.local_radius],
-            cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
-            device=self.device, **stereo)
-        if not success:
-            # TrackReferenceKeyFrame: the prediction is too far off for any
-            # projection window; match the reference keyframe by vocabulary
-            # buckets (pose-free), then search the local map from there with
-            # the narrow window only
-            rec = self._track_reference_keyframe_bow(feats)
-            if rec is None:
-                return False
-            timing.count("dispatch.track_fused")
+        with timing.stage("track.fused_pose"):
             success, res = fused_track_pose(
                 mp_pos, mp_words, valid_pt, mp_normal, mp_min_d, mp_max_d,
                 self.camera, feats.uv, feats.desc, feats.octave, feats.valid,
-                self._t(rec[0]), self._t(rec[1]), self._t(rec[0]), self._t(rec[1]),
-                False, [cfg.proj_radius, cfg.proj_radius, cfg.proj_radius,
-                        cfg.local_radius],
+                self._t(R_pred), self._t(t_pred), self._t(self.R_cw), self._t(self.t_cw),
+                self.state == TrackingState.RECENTLY_LOST,
+                [cfg.proj_radius, cfg.proj_radius_wide, cfg.proj_radius_wide * 2,
+                 cfg.local_radius],
                 cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
                 device=self.device, **stereo)
             if not success:
-                return False
-        res = {k: v.cpu().numpy() for k, v in res.items()}
+                # TrackReferenceKeyFrame: the prediction is too far off for
+                # any projection window; match the reference keyframe by
+                # vocabulary buckets (pose-free), then search the local map
+                # from there with the narrow window only
+                rec = self._track_reference_keyframe_bow(feats)
+                if rec is None:
+                    return False
+                success, res = fused_track_pose(
+                    mp_pos, mp_words, valid_pt, mp_normal, mp_min_d, mp_max_d,
+                    self.camera, feats.uv, feats.desc, feats.octave, feats.valid,
+                    self._t(rec[0]), self._t(rec[1]), self._t(rec[0]), self._t(rec[1]),
+                    False, [cfg.proj_radius, cfg.proj_radius, cfg.proj_radius,
+                            cfg.local_radius],
+                    cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
+                    device=self.device, **stereo)
+                if not success:
+                    return False
+            res = {k: v.cpu().numpy() for k, v in res.items()}
         R1 = res["R"].astype(np.float32)
         t1 = res["t"].astype(np.float32)
         mask = res["vsel"]
@@ -778,7 +772,6 @@ class Tracker:
         uv_obs[:n_sel] = uv_sel[:n_sel]
         info[:n_sel] = 1.0 / (1.2 ** (2 * oct_sel[:n_sel]))
         valid[:n_sel] = True
-        timing.count("dispatch.vi_pose")
         with timing.stage("track.vi_pose"):
             out, inl, n_in, new_prior = optimize_pose_inertial(
                 anchor, cur, pre, self.imu_calib, self._t(pts), self._t(uv_obs),

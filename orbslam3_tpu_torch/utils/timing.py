@@ -1,29 +1,59 @@
-"""Per-stage timing harness.
+"""Per-stage timing: the port's one span recorder.
 
 Port of `orbslam3_tpu/utils/timing.py` (ORB-SLAM3's `REGISTER_TIMES`
 instrumentation): per-frame stage timers in tracking and per-keyframe
-timers in mapping, in a process-global registry of named series, and
-`count()`, an always-on tally of named events.
+timers in mapping, grown into spans, and `count()`, an always-on tally of
+named events.
 
-`stage(name)` times host wall clock and does not synchronize the card:
-callers time whole host-visible stages, which is what the reference
-measures too. Disabled by default (a perf_counter pair when on); enable
-with `timing.enable()` or ORBSLAM3_TORCH_TIMING=1. `transfer_audit`
-counts the host<->device copies inside a block from torch.profiler's CUDA
-memcpy events, where the reference counts JAX's transfer-guard log lines.
+When timing is enabled (`timing.enable()` or ORBSLAM3_TORCH_TIMING=1),
+`stage(name, **fields)` appends the stage's duration in ms on
+`perf_counter` to the named series behind `stats()`, and keeps a `Span`:
+its start and end on the host clock that torch.profiler's kineto events
+carry (unix-time nanoseconds, `time.time_ns()`), its thread, the
+enclosing stage open on the same thread (`parent`), the outermost one
+(`root`: a frame's `slam.frame`, whose fields name the client and the
+frame), and the caller's fields. `spans()` returns them in the order
+they closed; the newest `MAX_SPANS` are kept. Disabled, a stage is a shared null
+context. A stage does not synchronize the card: callers time whole
+host-visible stages, which end in a host read, as the reference's timers
+do. `transfer_audit` counts the host<->device copies inside a block from
+torch.profiler's CUDA memcpy events, where the reference counts JAX's
+transfer-guard log lines.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 
+# an hour of frames at 20 Hz, 16 stages each
+MAX_SPANS = 3600 * 20 * 16
+
 _enabled = bool(int(os.environ.get("ORBSLAM3_TORCH_TIMING", "0")))
-_series: dict[str, list] = defaultdict(list)
+_series: dict[str, list] = collections.defaultdict(list)
+_spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_ids = itertools.count()   # span ids, unique in the process (reset keeps counting)
+_open = threading.local()  # .stack: ids of the stages open on this thread
+_counts: dict[str, int] = collections.defaultdict(int)
+_OFF = contextlib.nullcontext()
+
+
+class Span(NamedTuple):
+    id: int          # the stage's index among those opened in the process
+    name: str
+    start_ns: int    # time.time_ns(), the clock of torch.profiler's events
+    end_ns: int
+    thread: int      # threading.get_ident()
+    parent: int      # id of the enclosing stage open on this thread, -1 if none
+    root: int        # id of the outermost stage open on this thread (its own if none)
+    fields: dict     # the caller's keyword arguments to `stage`
 
 
 def enable(on: bool = True):
@@ -36,25 +66,49 @@ def enabled() -> bool:
 
 
 def reset():
+    """Clear the series, the spans and the counts."""
     _series.clear()
+    _spans.clear()
+    _counts.clear()
 
 
-@contextlib.contextmanager
-def stage(name: str):
-    """Time a stage; appends milliseconds to the named series when enabled."""
+class _Stage:
+    __slots__ = ("name", "fields", "id", "parent", "root", "t0", "p0")
+
+    def __init__(self, name: str, fields: dict):
+        self.name, self.fields = name, fields
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent = stack[-1] if stack else -1
+        self.root = stack[0] if stack else self.id
+        stack.append(self.id)
+        self.t0 = time.time_ns()
+        self.p0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        p1 = time.perf_counter()
+        t1 = time.time_ns()
+        _open.stack.pop()
+        _series[self.name].append((p1 - self.p0) * 1e3)
+        _spans.append(Span(self.id, self.name, self.t0, t1, threading.get_ident(),
+                           self.parent, self.root, self.fields))
+        return False
+
+
+def stage(name: str, **fields):
+    """Time a stage (a context manager); records nothing unless enabled."""
     if not _enabled:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _series[name].append((time.perf_counter() - t0) * 1e3)
+        return _OFF
+    return _Stage(name, fields)
 
 
-def record(name: str, ms: float):
-    if _enabled:
-        _series[name].append(ms)
+def spans() -> list[Span]:
+    """The kept spans, in the order they closed."""
+    return list(_spans)
 
 
 def stats() -> dict[str, dict]:
@@ -69,33 +123,9 @@ def stats() -> dict[str, dict]:
     return out
 
 
-def print_time_stats(file=None):
-    """`Tracking::PrintTimeStats` equivalent: mean/median per stage."""
-    import sys
-    f = file or sys.stdout
-    rows = sorted(stats().items())
-    if not rows:
-        print("(timing disabled or no samples)", file=f)
-        return
-    w = max(len(n) for n, _ in rows)
-    print(f"{'stage'.ljust(w)}      n     mean ms   median ms      p90 ms",
-          file=f)
-    for name, s in rows:
-        print(f"{name.ljust(w)} {s['n']:6d} {s['mean_ms']:11.2f} "
-              f"{s['median_ms']:11.2f} {s['p90_ms']:11.2f}", file=f)
-
-
-def save(path: str = "ExecTimeMean.txt"):
-    with open(path, "w") as f:
-        print_time_stats(file=f)
-
-
 # -- event counts ------------------------------------------------------------
 # `count()` tallies named events at hot-path call sites (an int increment,
 # always on).
-
-_counts: dict[str, int] = defaultdict(int)
-
 
 def count(name: str, k: int = 1):
     _counts[name] += k
@@ -103,10 +133,6 @@ def count(name: str, k: int = 1):
 
 def counts() -> dict[str, int]:
     return dict(_counts)
-
-
-def reset_counts():
-    _counts.clear()
 
 
 # -- host<->device copies ------------------------------------------------------

@@ -720,3 +720,41 @@ def test_atlas_round_trip_of_a_card_slam(cuda, tmp_path):
                 assert np.array_equal(getattr(back.atlas.maps[mid], name), arr), (mid, name)
                 assert np.array_equal(getattr(cpu.maps[mid], name), arr), (mid, name)
     assert back.atlas.maps[0].device == torch.device(cuda)
+
+
+@pytest.mark.cuda
+def test_stage_clock_holds_the_profiled_kernels(cuda, monkeypatch):
+    """`utils/timing.py` stamps a stage on `time.time_ns()`, which the
+    benchmark's profiler (`portbench/harness/trace.py:Profiler`) takes to
+    be the clock of its kineto events: a matmul read back with `.item()`
+    inside a stage has every device op of it inside the stage's start and
+    end, within 20 us."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    from orbslam3_tpu_torch.utils import timing
+    spec = importlib.util.spec_from_file_location(
+        "portbench_trace", Path(__file__).resolve().parents[1] / "portbench/harness/trace.py")
+    trace_mod = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, spec.name, trace_mod)  # its dataclass looks itself up
+    spec.loader.exec_module(trace_mod)
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()  # warm-up: the cuBLAS handle, the kernels' first launch
+    prof = trace_mod.Profiler(cuda=True)
+    timing.reset()
+    timing.enable(True)
+    try:
+        prof.start()
+        with timing.stage("probe"):
+            (a @ a).sum().item()
+        prof.stop()
+        probe = next(s for s in timing.spans() if s.name == "probe")
+    finally:
+        timing.enable(False)
+        timing.reset()
+    tr = prof.trace
+    assert len(tr.dev_name) >= 2, tr.dev_name   # the matmul, the sum, the copy back
+    tol = 20_000
+    for name, s, e in zip(tr.dev_name, tr.dev_start, tr.dev_end):
+        assert probe.start_ns - tol <= s <= e <= probe.end_ns + tol, (
+            name, (s - probe.start_ns) * 1e-3, (e - probe.end_ns) * 1e-3)

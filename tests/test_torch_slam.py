@@ -1,8 +1,11 @@
 """The port's monocular SLAM entry point and its host-side helpers, CPU:
 the `extract_features` capacity repair, the renderer against the
-reference's OpenCV renderer, `evaluation`, `utils/timing`, the parts that
-are not ported yet raising, and a short image-level run of
-`Slam.track_monocular` that initializes and tracks."""
+reference's OpenCV renderer, `evaluation`, `utils/timing`'s span recorder,
+the parts that are not ported yet raising, and a short image-level run of
+`Slam.track_monocular` that initializes and tracks, with its spans."""
+
+import threading
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -92,14 +95,64 @@ def test_evaluation_matches_jax():
 
 
 def test_timing_stages_and_counts():
+    """`utils/timing.py`, the port's span recorder: nested stages get their
+    parent, root, thread and fields, and each start and end lies between
+    two `time.time_ns()` reads taken around it; a stage on another thread
+    is its own root; a stage left by an exception closes; `stats()` keeps
+    its series on perf_counter; `reset()` clears series, spans and counts;
+    disabled, a stage keeps nothing and `count` still counts."""
     timing.reset()
-    timing.reset_counts()
     timing.enable(True)
     try:
-        with timing.stage("x"):
+        before = time.time_ns()
+        with timing.stage("outer", client=3, frame=7):
+            mid0 = time.time_ns()
+            with timing.stage("inner"):
+                pass
+            mid1 = time.time_ns()
+        after = time.time_ns()
+
+        def on_another_thread():
+            with timing.stage("other"):
+                pass
+
+        th = threading.Thread(target=on_another_thread)
+        th.start()
+        th.join(10)
+        assert not th.is_alive()
+        with pytest.raises(ValueError):
+            with timing.stage("raised"):
+                raise ValueError
+        with timing.stage("after"):
             pass
         timing.count("k", 2)
-        assert timing.stats()["x"]["n"] == 1 and timing.counts() == {"k": 2}
+
+        sp = {s.name: s for s in timing.spans()}
+        assert [s.name for s in timing.spans()] == ["inner", "outer", "other", "raised", "after"]
+        outer, inner, other = sp["outer"], sp["inner"], sp["other"]
+        assert outer.parent == -1 and outer.root == outer.id
+        assert inner.parent == outer.id and inner.root == outer.id and inner.id != outer.id
+        assert dict(outer.fields) == {"client": 3, "frame": 7} and dict(inner.fields) == {}
+        assert inner.thread == outer.thread == threading.get_ident() != other.thread
+        assert other.parent == -1 and other.root == other.id
+        assert sp["after"].parent == -1 and sp["after"].root == sp["after"].id
+        assert (before <= outer.start_ns <= mid0 <= inner.start_ns <= inner.end_ns <= mid1
+                <= outer.end_ns <= after)
+
+        st = timing.stats()
+        assert set(st) == {"outer", "inner", "other", "raised", "after"}
+        assert set(st["outer"]) == {"n", "mean_ms", "median_ms", "p90_ms", "total_ms"}
+        assert st["outer"]["n"] == 1 and st["outer"]["total_ms"] >= st["inner"]["total_ms"]
+        assert st["outer"]["total_ms"] <= (after - before) * 1e-6
+        assert timing.counts() == {"k": 2}
+
+        timing.reset()
+        assert timing.stats() == {} and timing.spans() == [] and timing.counts() == {}
+        timing.enable(False)
+        with timing.stage("off", client=0, frame=0):
+            pass
+        timing.count("k")
+        assert timing.stats() == {} and timing.spans() == [] and timing.counts() == {"k": 1}
     finally:
         timing.enable(False)
         timing.reset()
@@ -217,16 +270,30 @@ def test_entry_points_default_to_the_card():
         Slam(CAM, SystemConfig())
 
 
-def test_track_monocular_initializes_and_tracks():
+@pytest.fixture(scope="module")
+def mono_run():
     """Rendered 240x376 frames at 600 features on the orbit `chip_smoke.py`
-    drives at full width: the map initializes within 10 frames and every
-    later frame tracks."""
+    drives at full width, tracked with timing on: the `Slam`, the images,
+    whether each frame returned a pose, and timing's spans and counts."""
     imgs, _, _, ts = trender.orbit_sequence(12, 376, 240,
                                             (229.327, 228.648, 183.6075, 124.1875))
     slam = Slam(CAM, SystemConfig(map=MapConfig(max_keyframes=32, max_points=4096,
                                                 features_per_frame=600),
                                   tracker=TrackerConfig(n_features=600)), device="cpu")
-    tracked = [slam.track_monocular(im, float(s)) is not None for im, s in zip(imgs, ts)]
+    timing.reset()
+    timing.enable(True)
+    try:
+        tracked = [slam.track_monocular(im, float(s)) is not None for im, s in zip(imgs, ts)]
+        spans, counts = timing.spans(), timing.counts()
+    finally:
+        timing.enable(False)
+        timing.reset()
+    return slam, imgs, tracked, spans, counts
+
+
+def test_track_monocular_initializes_and_tracks(mono_run):
+    """The map initializes within 10 frames and every later frame tracks."""
+    slam, imgs, tracked, _, _ = mono_run
     init = tracked.index(True)
     assert init < 10 and all(tracked[init:])
     m = slam.trackers[0].map
@@ -234,3 +301,29 @@ def test_track_monocular_initializes_and_tracks():
     poses = slam._full_poses()
     assert len(poses) == len(imgs) - init
     assert all(np.isfinite(p[1]).all() and np.isfinite(p[2]).all() for p in poses)
+
+
+def test_slam_frame_spans_of_a_short_run(mono_run):
+    """Each frame handed to `Slam` is one `slam.frame` span (client 0, the
+    frame's index), the root of every stage inside it, which lie within
+    it; each frame tracked after the initializing one has `track.local_map`
+    and `track.fused_pose` as children, and the retry ladder made at least
+    two attempts (acquisition and refinement) for each."""
+    _, imgs, tracked, spans, counts = mono_run
+    frames = [s for s in spans if s.name == "slam.frame"]
+    assert [s.fields["frame"] for s in frames] == list(range(len(imgs)))
+    assert all(s.fields["client"] == 0 and s.parent == -1 and s.root == s.id for s in frames)
+    by_id = {s.id: s for s in spans}
+    assert all(s.root in by_id and by_id[s.root].name == "slam.frame" for s in spans)
+    init = tracked.index(True)
+    for i, f in enumerate(frames):
+        inside = [s for s in spans if s.root == f.id and s is not f]
+        assert all(f.start_ns <= s.start_ns <= s.end_ns <= f.end_ns for s in inside)
+        children = sorted(s.name for s in inside if s.parent == f.id)
+        if i > init:
+            assert tracked[i]
+            assert children.count("track.local_map") == 1, children
+            assert children.count("track.fused_pose") == 1, children
+        else:
+            assert "track.fused_pose" not in children
+    assert counts["track.ladder_attempt"] >= 2 * (len(imgs) - init - 1)
