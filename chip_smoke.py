@@ -115,6 +115,10 @@ The phases' inputs are rendered ahead, in RENDER_WORKERS spawned
 processes, while the card runs the earlier phases; each phase logs how
 long it waited for its inputs. Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
+inertial paths (mono-inertial, stereo-inertial, the edge server, the
+EuRoC and TUM-VI runners) print their visual-inertial pose solves, and
+fail unless every one replayed a captured CUDA graph; the async phase,
+monocular, prints its count too. The
 timings phase times both kernels by replaying a captured CUDA graph (so
 their device time is not hidden behind host launch overhead) at the inputs
 the SLAM runs handed them: K1 at one captured mask of each matcher policy
@@ -1627,6 +1631,7 @@ def edge_run(seq, batches, plan, plain: bool = False) -> dict:
     return dict(report=report, launches=launches, phones=dict(phones),
                 server={k: v - phones.get(k, 0) for k, v in launches.items()},
                 decodes=wire.decodes["native"] - decodes, stages=timing.stats(),
+                counts=timing.counts(),
                 log=[e["event"] for e in slam.events])
 
 
@@ -1855,7 +1860,8 @@ def run_slam(camera: Camera, cfg, frames, stamps, plain: bool = False, imu=None,
     out = dict(tracked=tracked, init=tracked.index(True) if any(tracked) else -1,
                keyframes=m.n_keyframes, points=m.n_points, poses=slam._full_poses(),
                launches=launches, frame_ms=frame_ms, kf_ms=kf_ms, stages=timing.stats(),
-               events=events, imu_initialized=m.imu_initialized, iba_stage=m.iba_stage,
+               counts=timing.counts(), events=events, imu_initialized=m.imu_initialized,
+               iba_stage=m.iba_stage,
                map=m, log=[e["event"] for e in slam.events])
     if snapshot_at is not None:
         out["snapshot"] = snapshot
@@ -1914,6 +1920,18 @@ def report_times(run: dict, smi: str, entry: str = "track_monocular") -> None:
         log(f"stage {name}: n {st['n']}, median {st['median_ms']:.1f} ms, p90 "
             f"{st['p90_ms']:.1f} ms, total {st['total_ms']:.1f} ms (host wall clock; "
             f"each stage ends in a host read of its result)")
+
+
+def log_vi_solves(path: str, counts: dict, inertial: bool = True) -> None:
+    """Print a run's visual-inertial pose solves (`utils.timing` counters):
+    replayed from a CUDA graph, graphs captured, solved eagerly. On the card
+    an inertial path replays every solve and solves none eagerly."""
+    replayed, captured, eager = (counts.get(f"track.vi_pose_{k}", 0)
+                                 for k in ("replay", "capture", "eager"))
+    log(f"{path}: VI pose solves {replayed} replayed from {captured} captured graph(s), "
+        f"{eager} eager")
+    if inertial and (replayed == 0 or eager):
+        raise AssertionError(f"{path}: {replayed} VI pose solves replayed, {eager} eager")
 
 
 def check_policies(launches: dict, frames: int, path: str, policies=POLICIES,
@@ -1990,6 +2008,7 @@ def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_
             f"package: {reference['iba_stage']}); keyframe scale {met['kf_scale']:.5f}; "
             f"gravity tilt {met['gravity_tilt_deg']:.3f} deg (JAX package "
             f"{reference['gravity_tilt_deg']} deg)")
+        log_vi_solves(path, run["counts"])
     log(f"launches on the {path} path: {json.dumps(launches, sort_keys=True)}")
     report_times(run, smi, "track_stereo" if stereo else "track_rgbd")
     if not 0 <= init <= MAX_DEPTH_INIT_FRAME:
@@ -2120,6 +2139,7 @@ def check_async(arun: dict, sync_run: dict, R_gt, t_gt, stamps, smi: str) -> Non
         f"{ate_sync:.5f} m; bound {REFERENCE_ATE * ATE_MARGIN:.5f} m); worker {worker}; "
         f"keyframes mapped {len(arun['kf_ms'])}; launches "
         f"{json.dumps(arun['launches'], sort_keys=True)}")
+    log_vi_solves("async mapping (monocular)", arun["counts"], inertial=False)
     for name, r in (("async", arun), ("synchronous", sync_run)):
         v = np.asarray(r["frame_ms"])
         log(f"track_monocular ms/frame, {name} mapping, over {len(v)} frames: p50 "
@@ -2833,11 +2853,13 @@ def runner_run(app, argv: list, snapshot_at: int | None = None, audit_frames=(),
             stack.enter_context(plain_kernels())
         torch.cuda.synchronize()
         _build.launches.clear()
+        counted = timing.counts()
         with contextlib.redirect_stdout(buf):
             out = app.run(argv, frame_hook=hook)
         out["slam"].flush()
         torch.cuda.synchronize()
         out["launches"] = _build.snapshot()
+        out["counts"] = {k: v - counted.get(k, 0) for k, v in timing.counts().items()}
     m = out["slam"].trackers[0].map
     out.update(events=events, audits=audits, stdout=buf.getvalue(),
                iba_stage=m.iba_stage, keyframes=m.n_keyframes, points=m.n_points)
@@ -2900,6 +2922,7 @@ def runner_phase(seqs: dict, root: str, smi: str) -> dict:
                     audit_frames=RUNNER_AUDIT_FRAMES)
     check_runner("EuRoC runner (mono-inertial)", eu, RUNNER_REFERENCE["euroc"],
                  RUNNER_EUROC["n_frames"], smi, POLICIES)
+    log_vi_solves("EuRoC runner (mono-inertial)", eu["counts"])
     for i, a in sorted(eu["audits"].items()):
         log(f"transfer_audit, EuRoC frame {i}: h2d {a['h2d']}, d2h {a['d2h']}, synchronize "
             f"calls {a['syncs']}, {a['keyframes']} keyframe(s) made, track {a['track_ms']:.1f} "
@@ -2920,6 +2943,7 @@ def runner_phase(seqs: dict, root: str, smi: str) -> dict:
     vi = runner_run(run_euroc, vi_args, snapshot_at=RUNNER_PREFIX)
     check_runner("TUM-VI runner (fisheye stereo-inertial)", vi, RUNNER_REFERENCE["tumvi"],
                  RUNNER_TUMVI["n_frames"], smi, FISHEYE_POLICIES, k2_per_frame=2)
+    log_vi_solves("TUM-VI runner (fisheye stereo-inertial)", vi["counts"])
     vplain = runner_run(run_euroc, vi_args + ["--max-frames", str(RUNNER_PREFIX)],
                         snapshot_at=RUNNER_PREFIX, plain=True)
     check_prefix_agree(vi, vplain, "TUM-VI runner")
@@ -3189,6 +3213,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         log(f"launches on the mono-inertial SLAM path: "
             f"{json.dumps(vi_launches, sort_keys=True)}")
         report_times(vi, smi)
+        log_vi_solves("mono-inertial SLAM", vi["counts"])
         if not 0 <= vinit <= MAX_INIT_FRAME:
             raise AssertionError(f"the VI map initialized at frame {vinit}")
         if not vi["imu_initialized"]:
@@ -3260,6 +3285,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         log(f"edge phase: {time.perf_counter() - t0:.1f} s for the kernel run over "
             f"{len(plan)} packets")
         check_edge(edge, plan, smi)
+        log_vi_solves("edge server", edge["counts"])
         edge_plain = edge_run(seq, batches, plan, plain=True)
         check_edge_agree(edge, edge_plain)
         del edge_plain

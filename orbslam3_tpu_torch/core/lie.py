@@ -130,6 +130,21 @@ def so3_normalize(R: torch.Tensor) -> torch.Tensor:
     return (u * d[..., None, :]) @ vt
 
 
+def so3_polar(R: torch.Tensor, steps: int = 2) -> torch.Tensor:
+    """Project a near-rotation matrix onto SO(3) by Newton's iteration for
+    its polar factor, R <- (R + R^-T) / 2, with R^-T from cofactors: the
+    rotation `so3_normalize` returns (U V^T), within 3e-6 of it entry by
+    entry in float32 for R up to 1e-2 off a rotation (both round at ~1e-6).
+    Plain arithmetic: on the card `torch.linalg.svd` checks its convergence
+    on the host, which a CUDA graph cannot capture."""
+    for _ in range(steps):
+        # rows r1 x r2, r2 x r0, r0 x r1: the cofactors, det(R) R^-T
+        C = torch.linalg.cross(R.roll(-1, dims=-2), R.roll(-2, dims=-2), dim=-1)
+        det = torch.sum(R[..., :1, :] * C[..., :1, :], dim=-1, keepdim=True)
+        R = 0.5 * (R + C / det)
+    return R
+
+
 def se3_exp(xi: torch.Tensor):
     """Exponential map se(3) -> SE(3). ``xi = (rho, phi)`` (...,6) -> (R, t)."""
     rho, phi = xi[..., :3], xi[..., 3:]

@@ -54,7 +54,8 @@ from orbslam3_tpu_torch.engine.track_program import fused_track_pose
 from orbslam3_tpu_torch.imu import init as imu_init
 from orbslam3_tpu_torch.imu import preintegration as preint
 from orbslam3_tpu_torch.opt.pose_gn import optimize_pose
-from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inertial
+from orbslam3_tpu_torch.opt.pose_inertial import (BodyState, PoseInertialGraphs,
+                                                  optimize_pose_inertial)
 from orbslam3_tpu_torch.slam_map.map_state import MapState
 from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.vision import matcher
@@ -176,6 +177,8 @@ class Tracker:
         self._pre_cur = None
         self._pre_frames: list = []
         self._imu_prior = None
+        # the VI pose solve's CUDA graphs and their buffers, this tracker's own
+        self._vi_graphs = PoseInertialGraphs()
         self._frame_bias: Optional[np.ndarray] = None
         self._vel_w: Optional[np.ndarray] = None
         self._map_change_seen = -1
@@ -737,10 +740,13 @@ class Tracker:
         """VI pose refinement (PoseInertialOptimizationLastKeyFrame /
         LastFrame): anchored at the reference keyframe when the map changed
         since the last frame (its prior is stale), else at the last frame
-        through the marginalization prior. Returns (R_cw, t_cw, inliers,
-        n_in, prior, velocity, bias), or None when it does not apply. It
-        notes the map's change index and changes nothing else: the caller
-        commits or drops the result."""
+        through the marginalization prior. On the card the solve replays a
+        CUDA graph of the tracker's, one per shape, variant and camera kind,
+        captured at its first solve (`PoseInertialGraphs`); on the CPU it
+        runs eagerly. Returns (R_cw, t_cw, inliers, n_in, prior, velocity,
+        bias), or None when it does not apply. It notes the map's change
+        index and changes nothing else: the caller commits or drops the
+        result."""
         m = self.map
         if (self.imu_calib is None or not m.imu_initialized
                 or self._pre_cur is None or self._vel_w is None
@@ -750,19 +756,17 @@ class Tracker:
         self._map_change_seen = m.change_index
         with m.lock:  # the anchor state and the landmarks together
             Rwb1, twb1, Rcb, tcb = self._body_pose(R1, t1)
-            cur = BodyState(*(self._t(x, torch.float32) for x in
-                              (Rwb1, twb1, self._vel_w, self._current_bias())))
+            cur = BodyState(Rwb1, twb1, self._vel_w, self._current_bias())
             if not map_updated and self._imu_prior is not None:
                 pre, prior, fixed = self._pre_cur, self._imu_prior, False
-                anchor = prior.state
+                anchor = None  # the prior's state
             else:
                 if not self._pre_frames:
                     return None
                 pre, prior, fixed = preint.merge_all(self._pre_frames), None, True
                 k = self.ref_kf
                 Rwb_k, twb_k, _, _ = self._body_pose(m.kf_R[k], m.kf_t[k])
-                anchor = BodyState(*(self._t(x, torch.float32) for x in
-                                     (Rwb_k, twb_k, m.kf_vel[k], m.kf_bias[k])))
+                anchor = BodyState(Rwb_k, twb_k, m.kf_vel[k].copy(), m.kf_bias[k].copy())
             n_sel = min(len(sel), cap)
             pts = np.zeros((cap, 3), np.float32)
             pts[:n_sel] = m.mp_pos[ids_p[sel[:n_sel]]]
@@ -773,16 +777,25 @@ class Tracker:
         info[:n_sel] = 1.0 / (1.2 ** (2 * oct_sel[:n_sel]))
         valid[:n_sel] = True
         with timing.stage("track.vi_pose"):
-            out, inl, n_in, new_prior = optimize_pose_inertial(
-                anchor, cur, pre, self.imu_calib, self._t(pts), self._t(uv_obs),
-                self._t(info), self._t(valid), self.camera, prior=prior,
-                anchor_fixed=fixed)
-            Rwb2, p2, v2, b2 = (x.cpu().numpy() for x in out)
+            if self.device.type == "cuda":
+                out, inl, n_in, new_prior = self._vi_graphs.solve(
+                    cur, pre, self.imu_calib, self.camera, pts, uv_obs, info, valid,
+                    anchor=anchor, prior=prior, anchor_fixed=fixed)
+            else:
+                def on_device(s):
+                    return BodyState(*(self._t(x, torch.float32) for x in s))
+                out, inl, n_in, new_prior = optimize_pose_inertial(
+                    prior.state if prior is not None else on_device(anchor), on_device(cur),
+                    pre, self.imu_calib, self._t(pts), self._t(uv_obs), self._t(info),
+                    self._t(valid), self.camera, prior=prior, anchor_fixed=fixed)
+                out = BodyState(*(x.cpu().numpy() for x in out))
+                inl = inl.cpu().numpy()
+        Rwb2, p2, v2, b2 = out
         if not all(np.isfinite(x).all() for x in (Rwb2, p2, v2, b2)):
             return None
         R_cw = (Rcb @ Rwb2.T).astype(np.float32)
         t_cw = (-R_cw @ p2 + tcb).astype(np.float32)
-        return (R_cw, t_cw, inl.cpu().numpy()[:len(sel)], int(n_in), new_prior,
+        return (R_cw, t_cw, inl[:len(sel)], int(n_in), new_prior,
                 v2.astype(np.float32), b2.astype(np.float32))
 
     def _track_reference_keyframe_bow(self, feats: FrameFeatures):

@@ -247,7 +247,7 @@ def _vi_reproj(prob: VIBAProblem, camera, Rcb, tcb):
 
 
 def inertial_factor(Ri, pi, vi, bi, Rj, pj, vj, dR0, dV0, dP0, JRg, JVg, JVa,
-                    JPg, JPa, bias0, dT):
+                    JPg, JPa, bias0, dT, g=None):
     """The unwhitened preintegration residual [er, ev, ep] (...,9) of i -> j
     and its Jacobians (...,9,15) with respect to the 15-dim perturbations
     [dphi, dp, dv, dbg, dba] of i and j (R <- R Exp(dphi), p <- p + R dp,
@@ -259,14 +259,19 @@ def inertial_factor(Ri, pi, vi, bi, Rj, pj, vj, dR0, dV0, dP0, JRg, JVg, JVa,
       d er/d phi_i = -Jr^-1(er) Rj^T Ri,   d er/d phi_j = Jr^-1(er),
       d er/d bg    = -Jr^-1(er) E^T Jr(JRg dbg) JRg,
       d ev/d phi_i = [Ri^T (vj - vi - g dT)]x, d ep/d phi_i = [Ri^T (...)]x,
-      d ep/d p_i = -I, d ep/d p_j = Ri^T Rj, and the rest linear."""
+      d ep/d p_i = -I, d ep/d p_j = Ri^T Rj, and the rest linear.
+
+    `g` is the world gravity (3,), `gravity_vec` by default; a caller that
+    captures the factor in a CUDA graph passes a tensor made beforehand
+    (`gravity_vec` copies from the host)."""
     dbg = bi[..., :3] - bias0[..., :3]
     dba = bi[..., 3:] - bias0[..., 3:]
     wg = _mv(JRg, dbg)
     dR = dR0 @ lie.so3_exp(wg)
     dV = dV0 + _mv(JVg, dbg) + _mv(JVa, dba)
     dP = dP0 + _mv(JPg, dbg) + _mv(JPa, dba)
-    g = gravity_vec(pi.dtype, pi.device)
+    if g is None:
+        g = gravity_vec(pi.dtype, pi.device)
     dT = dT[..., None]
     RiT = Ri.transpose(-1, -2)
     E = dR.transpose(-1, -2) @ RiT @ Rj

@@ -19,17 +19,26 @@ values up to rounding). The inlier set is
 re-classified by chi2 at each round's last step, as the reference's
 four-round loop does. The solves are `solve_ex`
 and `cholesky_ex`: nothing reads back to the host inside the loop.
+
+So on the card the whole solve, from the whitening to the inlier count, is
+captured once as a CUDA graph and replayed (`PoseInertialGraph`): one
+launch in place of ~14,000 small ones (~19,000 with a prior, at 1,000
+rows), whose host time paced the solve. `optimize_pose_inertial` runs it
+eagerly, on any device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orbslam3_tpu_torch.core import lie, robust
-from orbslam3_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
+from orbslam3_tpu_torch.imu.preintegration import ImuCalib, Preintegrated, gravity_vec
 from orbslam3_tpu_torch.opt.inertial import inertial_factor, whiten_from_cov
+from orbslam3_tpu_torch.utils import timing
 
 HUBER_MONO = robust.CHI2_MONO ** 0.5
 N_ROUNDS, N_ITERS = 4, 8  # inlier re-classifications, Gauss-Newton steps per round
@@ -60,7 +69,7 @@ def _perturb(s: BodyState, d: torch.Tensor) -> BodyState:
                      v=s.v + d[6:9], bias=s.bias + d[9:15])
 
 
-def _inertial_terms(si: BodyState, sj: BodyState, pre: Preintegrated, W):
+def _inertial_terms(si: BodyState, sj: BodyState, pre: Preintegrated, W, g=None):
     """Whitened 9-dim preintegration residual i -> j (EdgeInertial) and its
     Jacobians (9,15) with respect to the perturbations of `_perturb` on si
     and sj. The bias correction uses the anchor's bias, as the reference
@@ -68,7 +77,7 @@ def _inertial_terms(si: BodyState, sj: BodyState, pre: Preintegrated, W):
     p <- p + R dp; here p <- p + dp, so its position columns turn by R^T."""
     r, Ji, Jj = inertial_factor(si.Rwb, si.p, si.v, si.bias, sj.Rwb, sj.p, sj.v,
                                 pre.dR, pre.dV, pre.dP, pre.JRg, pre.JVg, pre.JVa,
-                                pre.JPg, pre.JPa, pre.bias, pre.dT)
+                                pre.JPg, pre.JPa, pre.bias, pre.dT, g=g)
     Ji = torch.cat([Ji[:, :3], Ji[:, 3:6] @ si.Rwb.T, Ji[:, 6:]], dim=-1)
     Jj = torch.cat([Jj[:, :3], Jj[:, 3:6] @ sj.Rwb.T, Jj[:, 6:]], dim=-1)
     return W @ r, W @ Ji, W @ Jj
@@ -99,17 +108,18 @@ def _reproj_terms(s: BodyState, Rcb, tcb, points, uv, camera):
 
 def _optimize(anchor: BodyState, cur: BodyState, pre: Preintegrated, W, Ww, prior_Lt,
               points, uv, info, valid, Rcb, tcb, camera, use_prior: bool,
-              anchor_fixed: bool):
+              anchor_fixed: bool, normalize, gravity):
     """Gauss-Newton over the current frame's 15-dim state (anchor fixed) or
-    the joint 30-dim [anchor, current] state (a prior on the anchor).
-    Returns (current state, inlier mask, marginal H)."""
+    the joint 30-dim [anchor, current] state (a prior on the anchor), each
+    rotation put back on SO(3) by `normalize` after its step. Returns
+    (current state, inlier mask, marginal H)."""
     dtype, dev = points.dtype, points.device
     dim = 15 if anchor_fixed else 30
 
     def strap_terms(a, c):
         """The inertial, bias-walk and prior rows (k,) and their Jacobian
         (k, dim) in closed form."""
-        r_in, Ja, Jc = _inertial_terms(a, c, pre, W)
+        r_in, Ja, Jc = _inertial_terms(a, c, pre, W, gravity)
         zero96 = torch.zeros((6, 9), dtype=dtype, device=dev)
         Ja = torch.cat([Ja, torch.cat([zero96, -Ww], dim=1)])
         Jc = torch.cat([Jc, torch.cat([zero96, Ww], dim=1)])
@@ -149,7 +159,7 @@ def _optimize(anchor: BodyState, cur: BodyState, pre: Preintegrated, W, Ww, prio
         return H, b
 
     def normalized(s: BodyState) -> BodyState:
-        return s._replace(Rwb=lie.so3_normalize(s.Rwb))
+        return s._replace(Rwb=normalize(s.Rwb))
 
     a, c = anchor, cur
     inlier = valid.to(dtype)
@@ -180,29 +190,195 @@ def _optimize(anchor: BodyState, cur: BodyState, pre: Preintegrated, W, Ww, prio
     return c, inlier.to(torch.bool), Hm
 
 
+def _solve(anchor: BodyState, cur: BodyState, pre: Preintegrated, calib: ImuCalib,
+           points, uv, info, valid, camera, prior_H, anchor_fixed: bool, normalize,
+           gravity):
+    """The whole solve on the device of `points`, every input there: the
+    whitening, the prior's factor (`prior_H` None: no prior), the
+    Gauss-Newton loop, the marginal H. Returns (BodyState, inliers (N,),
+    their count as a tensor, marginal H); nothing is read back."""
+    dev, dtype = points.device, points.dtype
+    W = whiten_from_cov(pre.cov)
+    Ww = whiten_from_cov(pre.cov_walk)
+    Rcb, tcb = calib.cam_from_body()
+    use_prior = prior_H is not None
+    if use_prior:
+        # the prior's factor, once, outside the Gauss-Newton loop
+        prior_Lt = torch.linalg.cholesky_ex(
+            prior_H + 1e-8 * torch.eye(15, dtype=dtype, device=dev)).L.T
+    else:
+        prior_Lt = torch.zeros((15, 15), dtype=dtype, device=dev)
+    cur_f, inliers, Hm = _optimize(
+        anchor, cur, pre, W, Ww, prior_Lt, points, uv, info, valid, Rcb, tcb, camera,
+        use_prior=use_prior, anchor_fixed=anchor_fixed, normalize=normalize, gravity=gravity)
+    return cur_f, inliers, inliers.sum(), Hm
+
+
 def optimize_pose_inertial(anchor: BodyState, cur: BodyState, pre: Preintegrated,
                            calib: ImuCalib, points, uv, info, valid, camera,
                            prior: PoseImuPrior | None = None, anchor_fixed: bool = True):
-    """The public entry, on the device of `points`. `pre` is the
-    anchor->current preintegration and `calib` the camera<->body
+    """The public entry, on the device of `points`, run eagerly. `pre` is
+    the anchor->current preintegration and `calib` the camera<->body
     extrinsics. Returns (BodyState, inliers (N,), n_inliers, PoseImuPrior
     for the next frame). anchor_fixed=True is the
     LastKeyFrame variant; False with a prior the LastFrame variant."""
     dev, dtype = points.device, points.dtype
-    pre = pre.to(dev)
-    W = whiten_from_cov(pre.cov)
-    Ww = whiten_from_cov(pre.cov_walk)
-    Rcb, tcb = calib.to(dev).cam_from_body()
-    use_prior = prior is not None
-    if use_prior:
-        # the prior's factor, once, outside the Gauss-Newton loop
-        prior_Lt = torch.linalg.cholesky_ex(
-            prior.H.to(dev, dtype) + 1e-8 * torch.eye(15, dtype=dtype, device=dev)).L.T
+    timing.count("track.vi_pose_eager")
+    if prior is not None:
         anchor = prior.state
-    else:
-        prior_Lt = torch.zeros((15, 15), dtype=dtype, device=dev)
-    cur_f, inliers, Hm = _optimize(
+    cur_f, inliers, n_in, Hm = _solve(
         BodyState(*(x.to(dev) for x in anchor)), BodyState(*(x.to(dev) for x in cur)),
-        pre, W, Ww, prior_Lt, points, uv, info, valid, Rcb, tcb, camera,
-        use_prior=use_prior, anchor_fixed=anchor_fixed)
-    return cur_f, inliers, int(inliers.sum()), PoseImuPrior(cur_f, Hm)
+        pre.to(dev), calib.to(dev), points, uv, info, valid, camera,
+        None if prior is None else prior.H.to(dev, dtype), anchor_fixed, lie.so3_normalize,
+        gravity_vec(dtype, dev))
+    return cur_f, inliers, int(n_in), PoseImuPrior(cur_f, Hm)
+
+
+STATE = 21  # a BodyState packed: Rwb (9), p (3), v (3), bias (6)
+
+
+def _views(flat: torch.Tensor, shapes) -> list:
+    """Consecutive views of `flat` with the given shapes."""
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    return [x.view(sh) for x, sh in zip(flat.split(sizes), shapes)]
+
+
+def _state_views(flat: torch.Tensor) -> BodyState:
+    return BodyState(*_views(flat, [(3, 3), (3,), (3,), (6,)]))
+
+
+def _pack_state(s: BodyState):
+    return np.concatenate([np.ravel(x) for x in s])
+
+
+class PoseInertialGraph:
+    """The solve of one shape on the card, captured once as a CUDA graph and
+    replayed for every later call: its ~14,000-19,000 kernels launch as one
+    graph, with no host time between them. One per (`cap` rows, variant,
+    camera kind, device): `project` branches on the kind in Python, and
+    the shapes and the variant's terms are fixed at capture.
+
+    Every per-call value goes into the graph's own input buffers before a
+    replay, for a Python number read at capture would be frozen into it: the
+    host's arrays (points, observations, information, validity, the current
+    state and a keyframe anchor) through one pinned staging buffer and one
+    upload; the device's tensors (the preintegration, the extrinsics, the
+    camera, a prior's H and state) by one concatenation. The answers come
+    back through one pinned buffer with one synchronization, and the prior
+    for the next frame is cloned out of the graph's output, so a later
+    replay never writes into a prior the caller kept.
+
+    The capture is that of `optimize_pose_inertial` with one change: the
+    rotations are put back on SO(3) by `lie.so3_polar` instead of the SVD,
+    whose convergence check reads back to the host. The first call warms the
+    solve up eagerly on a side stream (the libraries' handles and
+    workspaces), then captures in the thread-local mode, so other threads
+    (an async mapper, other edge lanes) launch on meanwhile."""
+
+    def __init__(self, cap: int, anchor_fixed: bool, use_prior: bool, device):
+        self.cap, self.anchor_fixed, self.use_prior = cap, anchor_fixed, use_prior
+        self.device = torch.device(device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        n_host = 7 * cap + 2 * STATE
+        self._host_in = torch.empty(n_host, dtype=torch.float32, pin_memory=True)
+        self._dev_host = torch.empty(n_host, **f32)
+        h = _views(self._host_in, [(cap, 3), (cap, 2), (cap,), (cap,), (STATE,), (STATE,)])
+        self._stage = [x.numpy() for x in h]
+        d = _views(self._dev_host, [(cap, 3), (cap, 2), (cap,), (cap,), (STATE,), (STATE,)])
+        self._pts, self._uv, self._info, self._valid = d[:4]
+        self._cur, anchor = _state_views(d[4]), _state_views(d[5])
+        # the device's inputs: the preintegration's twelve fields, Rbc, tbc,
+        # the camera's parameters, with a prior its H and state (the anchor)
+        shapes = [(), (3, 3), (3,), (3,), (9, 9), (6, 6)] + [(3, 3)] * 5 + [(6,)]
+        shapes += [(3, 3), (3,), (9,)] + ([(15, 15), (STATE,)] if use_prior else [])
+        self._dev_in = torch.empty(sum(int(np.prod(sh)) for sh in shapes), **f32)
+        d = _views(self._dev_in, shapes)
+        self._pre = Preintegrated(*d[:12])
+        self._Rbc, self._tbc, self._params = d[12:15]
+        self._prior_H = d[15] if use_prior else None
+        self._anchor = _state_views(d[16]) if use_prior else anchor
+        self._gravity = gravity_vec(torch.float32, self.device)
+        n_out = STATE + 225 + cap + 1  # state, marginal H, inliers, their count
+        self._host_out = torch.empty(n_out, dtype=torch.float32, pin_memory=True)
+        self._stream = torch.cuda.Stream(self.device)
+        self._graph, self._out = None, None
+
+    def _run(self, calib: ImuCalib, camera) -> torch.Tensor:
+        """The solve on the static inputs, its answers packed in one tensor."""
+        cur_f, inl, n_in, Hm = _solve(
+            self._anchor, self._cur, self._pre,
+            dataclasses.replace(calib, Rbc=self._Rbc, tbc=self._tbc),
+            self._pts, self._uv, self._info, self._valid > 0.5,
+            dataclasses.replace(camera, params=self._params), self._prior_H,
+            self.anchor_fixed, lie.so3_polar, self._gravity)
+        return torch.cat([cur_f.Rwb.reshape(-1), cur_f.p, cur_f.v, cur_f.bias, Hm.reshape(-1),
+                          inl.to(torch.float32), n_in.to(torch.float32).reshape(1)])
+
+    def _capture(self, calib: ImuCalib, camera):
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            self._run(calib, camera)
+        main.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            self._out = self._run(calib, camera)
+        self._graph = graph
+        timing.count("track.vi_pose_capture")
+
+    def solve(self, cur: BodyState, pre: Preintegrated, calib: ImuCalib, camera, points, uv,
+              info, valid, anchor: BodyState | None = None, prior: PoseImuPrior | None = None):
+        """`optimize_pose_inertial` by a replay. `cur`, `anchor` (the
+        keyframe variant; with a prior its state is the anchor) and the
+        `cap` rows of `points`, `uv`, `info`, `valid` are host arrays; `pre`,
+        `calib`, `camera` and `prior` live on the graph's device. Returns
+        (BodyState of host arrays, inliers (cap,) bool, n_inliers, the
+        PoseImuPrior for the next frame, the caller's own tensors)."""
+        if (prior is not None) != self.use_prior:
+            raise ValueError("a prior goes to the graph captured with one")
+        pts_h, uv_h, info_h, valid_h, cur_h, anchor_h = self._stage
+        pts_h[:], uv_h[:], info_h[:], valid_h[:] = points, uv, info, valid
+        cur_h[:] = _pack_state(cur)
+        if prior is None:
+            anchor_h[:] = _pack_state(anchor)
+        self._dev_host.copy_(self._host_in, non_blocking=True)
+        dev_in = [*pre, calib.Rbc, calib.tbc, camera.params]
+        if prior is not None:
+            dev_in += [prior.H, *prior.state]
+        torch.cat([x.reshape(-1) for x in dev_in], out=self._dev_in)
+        if self._graph is None:
+            self._capture(calib, camera)
+        self._graph.replay()
+        timing.count("track.vi_pose_replay")
+        own = self._out.clone()
+        self._host_out.copy_(own, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        o = self._host_out.numpy()
+        Rwb, p, v, bias = np.split(o[:STATE].copy(), [9, 12, 15])
+        host = BodyState(Rwb.reshape(3, 3), p, v, bias)
+        inliers = o[STATE + 225:STATE + 225 + self.cap] > 0.5
+        nxt = PoseImuPrior(_state_views(own[:STATE]), own[STATE:STATE + 225].view(15, 15))
+        return host, inliers, int(o[-1]), nxt
+
+
+class PoseInertialGraphs:
+    """The graphs of one caller (a tracker: each client of the edge server
+    owns its graphs and buffers), keyed on what a capture fixes: the rows
+    `cap`, the variant, the camera's kind and the device. A new key, such as
+    a capacity tier that grows the frame's rows, costs one eager warm-up and
+    one capture."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+
+    def solve(self, cur: BodyState, pre: Preintegrated, calib: ImuCalib, camera, points, uv,
+              info, valid, anchor: BodyState | None = None,
+              prior: PoseImuPrior | None = None, anchor_fixed: bool = True):
+        """`PoseInertialGraph.solve` on the graph of this shape, variant and
+        camera, captured first if there is none."""
+        key = (len(points), anchor_fixed, prior is not None, camera.kind, camera.params.device)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = PoseInertialGraph(*key[:3], key[4])
+        return graph.solve(cur, pre, calib, camera, points, uv, info, valid, anchor=anchor,
+                           prior=prior)

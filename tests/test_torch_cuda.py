@@ -275,6 +275,216 @@ def test_optimize_pose_inertial_on_the_card(cuda):
     assert torch.equal(runs[0][3].H, runs[1][3].H)
 
 
+def _vi_pose_case(prior: bool, cap: int = 128, kb8: bool = False, shift: float = 0.0,
+                  drop: int = 0):
+    """A VI pose solve on `_vi_problem`'s trajectory, as the tracker hands it
+    to `PoseInertialGraphs.solve`: keyframe 2's view anchored at keyframe 1
+    (the keyframe variant), or keyframe 3's through the marginalization
+    prior of that solve (the frame variant); the current state perturbed
+    (`shift` moves it further), the last `drop` rows marked invalid, the
+    rows padded to `cap`. With `kb8` the view is projected by a
+    Kannala-Brandt camera. Host arrays for the states and rows; CPU tensors
+    for the rest."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    from orbslam3_tpu_torch.imu import preintegration as P
+    from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inertial
+    prob, _, cam, calib, traj, idx = _vi_problem()
+    if kb8:
+        cam = Camera.kb8(400.0, 400.0, 320.0, 240.0, 0.01, -0.005, 0.001, 0.0, width=640,
+                         height=480, device="cpu")
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
+
+    def window(a, b):
+        return P.preintegrate(*(f32(x[idx[a]:idx[b]]) for x in (traj.acc, traj.gyro, traj.dt)),
+                              torch.zeros(6), calib)
+
+    def state(k, dp, dv):
+        return BodyState(traj.R_wb[idx[k]], traj.p_wb[idx[k]] + dp, traj.v_wb[idx[k]] + dv,
+                         np.zeros(6))
+
+    def rows(k):
+        sel = (prob.kf_idx == k).numpy()
+        pts = prob.points[prob.lm_idx[sel]].numpy()
+        uv = prob.uv[sel].numpy()
+        if kb8:
+            R, p = traj.R_wb[idx[k]], traj.p_wb[idx[k]]
+            uv = cam.project(f32((pts - p) @ R)).numpy()
+        n = len(pts)
+        out = (np.zeros((cap, 3), np.float32), np.zeros((cap, 2), np.float32),
+               np.ones(cap, np.float32), np.zeros(cap, bool))
+        out[0][:n], out[1][:n], out[3][:n - drop] = pts, uv, True
+        return out
+
+    def host(s):
+        return BodyState(*(np.asarray(x, np.float32) for x in s))
+
+    anchor = host(state(1, 0.0, 0.0))
+    cur = host(state(2, np.array([0.05, -0.03, 0.04]) + shift, np.array([0.1, 0.0, -0.1])))
+    case = dict(cam=cam, calib=calib, pre=window(1, 2), anchor=anchor, cur=cur, prior=None,
+                rows=rows(2))
+    if prior:
+        t = lambda s: BodyState(*(torch.from_numpy(x) for x in s))  # noqa: E731
+        first = optimize_pose_inertial(t(anchor), t(cur), window(1, 2), calib,
+                                       *(torch.from_numpy(x) for x in rows(2)), cam)
+        case.update(pre=window(2, 3), anchor=None, prior=first[3], rows=rows(3),
+                    cur=host(state(3, np.array([-0.04, 0.02, 0.03]) + shift,
+                                   np.array([0.05, 0.05, 0.0]))))
+    return case
+
+
+def _eager(case, dev):
+    """`optimize_pose_inertial` on `dev`: (BodyState, inliers, n, prior)."""
+    from orbslam3_tpu_torch.opt.pose_inertial import BodyState, optimize_pose_inertial
+    t = lambda s: BodyState(*(torch.from_numpy(x).to(dev) for x in s))  # noqa: E731
+    prior = case["prior"] and type(case["prior"])(_to(case["prior"].state, dev),
+                                                  case["prior"].H.to(dev))
+    return optimize_pose_inertial(
+        prior.state if prior else t(case["anchor"]), t(case["cur"]), case["pre"].to(dev),
+        case["calib"], *(torch.from_numpy(x).to(dev) for x in case["rows"]),
+        case["cam"].to(dev), prior=prior, anchor_fixed=prior is None)
+
+
+def _replay(graphs, case, dev):
+    """The case through the graph cache on `dev`; returns the solve's
+    answer and the graph it replayed."""
+    prior = case["prior"] and type(case["prior"])(_to(case["prior"].state, dev),
+                                                  case["prior"].H.to(dev))
+    cam = case["cam"].to(dev)
+    got = graphs.solve(case["cur"], case["pre"].to(dev), case["calib"].to(dev), cam,
+                       *case["rows"], anchor=case["anchor"], prior=prior,
+                       anchor_fixed=prior is None)
+    key = (len(case["rows"][0]), prior is None, prior is not None, cam.kind, cam.params.device)
+    return got, graphs.graphs[key]
+
+
+def _same_as_its_eager_run(got, graph, case, dev):
+    """A replay's answer equals, bit for bit, the eager solve of the graph's
+    own inputs (the same ops on the same buffers, outside the graph)."""
+    eager = graph._run(case["calib"].to(dev), case["cam"].to(dev)).cpu().numpy()
+    packed = np.concatenate([np.ravel(x) for x in got[0]])
+    np.testing.assert_array_equal(packed, eager[:21])
+    np.testing.assert_array_equal(got[3].H.cpu().numpy().ravel(), eager[21:246])
+    np.testing.assert_array_equal(got[1], eager[246:-1] > 0.5)
+    assert got[2] == int(eager[-1])
+
+
+def _close_to(got, ref, rel):
+    """Pose, velocity and bias within `rel` of the reference's largest
+    entry (1e-7 floor for a zero bias); the inlier mask exact."""
+    for a, b in zip(got[0], ref[0]):
+        b = b.cpu().numpy()
+        assert np.abs(a - b).max() <= rel * np.abs(b).max() + 1e-7
+    np.testing.assert_array_equal(got[1], ref[1].cpu().numpy())
+    assert got[2] == ref[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["keyframe", "prior"])
+def test_vi_pose_graph_replays_the_solve(cuda, variant):
+    """The VI pose solve replayed from its CUDA graph: bit for bit the eager
+    solve of the same inputs; within 1e-5 of `optimize_pose_inertial` on
+    the card, whose rotations are re-normalized by the SVD where the graph
+    takes `so3_polar` (3e-6 an entry, and the converged solve does not
+    amplify it: 3e-7 measured on the CPU); within 1e-4 of the CPU with the
+    inlier mask exact, as `test_optimize_pose_inertial_on_the_card`."""
+    from orbslam3_tpu_torch.opt.pose_inertial import PoseInertialGraphs
+    case = _vi_pose_case(prior=variant == "prior")
+    got, graph = _replay(PoseInertialGraphs(), case, cuda)
+    assert graph._graph is not None
+    _same_as_its_eager_run(got, graph, case, cuda)
+    _close_to(got, _eager(case, cuda), 1e-5)
+    _close_to(got, _eager(case, "cpu"), 1e-4)
+    assert got[2] > 20
+
+
+@pytest.mark.cuda
+def test_vi_pose_graph_replays_new_inputs_and_keeps_a_prior(cuda):
+    """Two replays of one graph with other inputs give each its own eager
+    answer, and the prior returned by the first is the caller's: the second
+    replay leaves it as it was."""
+    from orbslam3_tpu_torch.opt.pose_inertial import PoseInertialGraphs
+    graphs = PoseInertialGraphs()
+    case1, case2 = _vi_pose_case(prior=True), _vi_pose_case(prior=True, shift=0.02, drop=30)
+    got1, graph = _replay(graphs, case1, cuda)
+    _same_as_its_eager_run(got1, graph, case1, cuda)
+    kept = [x.clone() for x in (*got1[3].state, got1[3].H)]
+    got2, graph2 = _replay(graphs, case2, cuda)
+    assert graph2 is graph
+    _same_as_its_eager_run(got2, graph, case2, cuda)
+    for got, case in ((got1, case1), (got2, case2)):
+        _close_to(got, _eager(case, cuda), 1e-5)
+    assert not np.array_equal(got1[0].p, got2[0].p) and got1[2] != got2[2]
+    for a, b in zip(kept, (*got1[3].state, got1[3].H)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_vi_pose_graphs_key_on_cap_variant_and_camera(cuda):
+    """Each cap, variant and camera kind captures its own graph once, and
+    the counters count what they name: a capture, a replay, an eager
+    solve."""
+    from orbslam3_tpu_torch.opt.pose_inertial import PoseInertialGraphs
+    from orbslam3_tpu_torch.utils import timing
+    names = ("track.vi_pose_capture", "track.vi_pose_replay", "track.vi_pose_eager")
+
+    def counted():
+        c = timing.counts()
+        return [c.get(n, 0) for n in names]
+
+    graphs = PoseInertialGraphs()
+    cases = [_vi_pose_case(False), _vi_pose_case(False, shift=0.01), _vi_pose_case(False, cap=192),
+             _vi_pose_case(False, kb8=True), _vi_pose_case(True)]
+    start = counted()  # the prior case's first solve ran eagerly, on the CPU
+    for case in cases:
+        got, graph = _replay(graphs, case, cuda)
+        _same_as_its_eager_run(got, graph, case, cuda)
+    assert len(graphs.graphs) == 4
+    assert {k[0] for k in graphs.graphs} == {128, 192}
+    assert {k[3] for k in graphs.graphs} == {"pinhole", "kb8"}
+    assert [b - a for a, b in zip(start, counted())] == [4, 5, 0]
+    kb8 = cases[3]
+    got, _ = _replay(graphs, kb8, cuda)
+    _close_to(got, _eager(kb8, "cpu"), 1e-4)
+    assert got[2] > 20
+    assert [b - a for a, b in zip(start, counted())] == [4, 6, 1]
+
+
+@pytest.mark.cuda
+def test_vi_pose_capture_beside_a_launching_thread(cuda):
+    """A capture in thread-local mode while another thread launches work
+    and reads it back (as the async mapper does) succeeds, and so does the
+    other thread."""
+    import threading
+    from orbslam3_tpu_torch.opt.pose_inertial import PoseInertialGraphs
+    stop, errors, rounds = threading.Event(), [], [0]
+    a = torch.randn(256, 256, device=cuda)
+
+    def launch():
+        try:
+            while not stop.is_set():
+                float((a @ a).sum())
+                rounds[0] += 1
+        except Exception as e:  # reported by the assertion below
+            errors.append(e)
+
+    other = threading.Thread(target=launch)
+    other.start()
+    try:
+        while rounds[0] < 3:
+            stop.wait(0.01)
+        case = _vi_pose_case(prior=False)
+        got, graph = _replay(PoseInertialGraphs(), case, cuda)
+        seen = rounds[0]
+        while rounds[0] < seen + 3 and other.is_alive():
+            stop.wait(0.01)
+    finally:
+        stop.set()
+        other.join(timeout=30)
+    assert not other.is_alive() and not errors, errors
+    _same_as_its_eager_run(got, graph, case, cuda)
+    _close_to(got, _eager(case, "cpu"), 1e-4)
+
+
 def _stereo_keypoints(n: int, m: int, seed: int):
     """Left and right keypoints of a rectified pair at full width (752x480):
     two thirds of the left ones matched at depths 1-12 m (bf 40) with row

@@ -34,6 +34,7 @@ from orbslam3_tpu_torch.engine.local_mapping import LocalMapper as TMapper, Loca
 from orbslam3_tpu_torch.engine.tracking import Tracker as TTracker, TrackerConfig as TTC
 from orbslam3_tpu_torch.evaluation import umeyama_alignment
 from orbslam3_tpu_torch.slam_map.map_state import MapConfig as TMC, MapState as TMS
+from orbslam3_tpu_torch.utils import timing
 from test_torch_slam_e2e import reference_samples
 
 POSE_TOL = 2e-3
@@ -62,7 +63,7 @@ def run_both(n_frames: int, mapper_cfg: dict):
                   sample_fn=reference_samples)
     runs = {}
     for name, tracker, m in (("jax", jt, jm), ("port", tt, tm)):
-        poses, events = [], {}
+        poses, events, counted = [], {}, timing.counts()
         for i, f in enumerate(frames):
             if name == "port":
                 f = convert.frame_features(*(np.asarray(getattr(f, k)) for k in
@@ -75,7 +76,10 @@ def run_both(n_frames: int, mapper_cfg: dict):
             for stage in (1, 2):
                 if m.iba_stage >= stage and stage not in events:
                     events[stage] = i
-        runs[name] = dict(poses=poses, events=events, map=m, tracker=tracker)
+        vi_counts = {k: v - counted.get(k, 0) for k, v in timing.counts().items()
+                     if k.startswith("track.vi_pose") and v != counted.get(k, 0)}
+        runs[name] = dict(poses=poses, events=events, map=m, tracker=tracker,
+                          vi_counts=vi_counts)
     return seq, runs
 
 
@@ -131,6 +135,17 @@ def test_inertial_state_agrees(tier1):
         centres = -np.einsum("nji,nj->ni", m.kf_R[ks], m.kf_t[ks])
         s, _, _ = umeyama_alignment(centres.astype(np.float64), gt, with_scale=True)
         assert abs(s - 1.0) < 0.2
+
+
+def test_the_vi_pose_solve_runs_eagerly_on_the_cpu(tier1):
+    """On the CPU the tracker's VI pose solve is `optimize_pose_inertial`
+    run eagerly, the parent's code: counted as `track.vi_pose_eager`, with
+    no CUDA graph captured or replayed."""
+    _, runs = tier1
+    port = runs["port"]
+    assert set(port["vi_counts"]) == {"track.vi_pose_eager"}
+    assert port["vi_counts"]["track.vi_pose_eager"] >= 1
+    assert port["tracker"]._vi_graphs.graphs == {}
 
 
 @pytest.mark.slow
