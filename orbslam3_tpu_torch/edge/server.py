@@ -10,9 +10,15 @@ SlamPktVI reassembly -> frame queue) and a track thread (dequeue ->
 The rules are the fork's: 1000 features while initializing or lost and 500
 while tracking (a CmdPkt when the state flips); a secondary client tracks
 one frame in `K_TRACK` = 5 while its ``init_flag`` is False (its first
-frames too); the acoustic handshake ``"<id>,<max_clients>\\n"``, then
-``peer interval`` reports queued per peer; `cal_acoustic` converts
-pending interval pairs to distances gated to 0-4 m.
+frames too), and answers only the frames it tracks. One departure: the IMU
+samples of a skipped frame go on, in timestamp order, with the client's
+next tracked frame, so its preintegration spans every sample since its
+last tracked frame (the fork's `client.cc` drops them with the frame, and
+a secondary client's poses then lose the metric scale the fork promises
+for every client of the shared map). The acoustic handshake
+``"<id>,<max_clients>\\n"``, then ``peer interval`` reports queued per
+peer; `cal_acoustic` converts pending interval pairs to distances gated to
+0-4 m.
 
 The compute is not here: ``track_fn(client_id, FramePacket) -> (R_cw,
 t_cw) | None`` comes from the system (`Slam.track_edge`). Every socket has
@@ -22,6 +28,7 @@ ends all threads within a bounded time.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import socket
 import threading
@@ -32,6 +39,7 @@ import numpy as np
 
 from orbslam3_tpu_torch.edge import wire
 from orbslam3_tpu_torch.edge.acoustic import K_DISTANCE, MAX_RANGE_M, SAMPLE_RATE, SPEED_OF_SOUND
+from orbslam3_tpu_torch.utils import timing
 from orbslam3_tpu_torch.utils import verbose as _verbose
 
 # the fork's budgets: 1000 features when initializing / lost, 500 when OK;
@@ -53,7 +61,9 @@ class LaneStats:
 
 
 class ClientLane:
-    """The server's side of one phone (the fork's `Client`)."""
+    """The server's side of one phone (the fork's `Client`). A frame that
+    the 1-in-k rule skips is neither tracked nor answered; its IMU samples
+    wait in the lane and go to the tracker with the next tracked frame's."""
 
     def __init__(self, client_id: int, conn: socket.socket, server: "EdgeServer"):
         self.id = client_id
@@ -68,6 +78,8 @@ class ClientLane:
         self.stats = LaneStats()
         self.init_flag = False       # True while lost / initializing
         self.errors: list[BaseException] = []  # raised by track_fn; the lane stops
+        # (ts, gyro, acc) of the frames skipped since the last tracked one
+        self._imu_carry: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._alive = True
         self._closed = False
         self._lock = threading.Lock()
@@ -95,7 +107,8 @@ class ClientLane:
                 if not data:
                     break
                 for payload in dec.feed(data):
-                    pkt = wire.decode_frame(payload)
+                    with timing.stage("edge.decode", client=self.id):
+                        pkt = wire.decode_frame(payload)
                     if pkt is None:  # malformed: drop the packet, keep the lane
                         _verbose.normal(f"client {self.id}: dropping malformed packet "
                                         f"({len(payload)} bytes)")
@@ -123,7 +136,10 @@ class ClientLane:
             if self.id != 0 and not self.init_flag and \
                     pkt.frame_id % K_TRACK != 0:
                 self.stats.frames_skipped += 1
+                timing.count("edge.skipped")
+                self._imu_carry.append((pkt.imu_ts_ns, pkt.imu_gyro, pkt.imu_acc))
                 continue
+            pkt = self._with_carried_imu(pkt)
             t0 = time.monotonic()
             try:
                 result = self.server.track_fn(self.id, pkt)
@@ -153,6 +169,19 @@ class ClientLane:
             delay = self.stats.send_times[-1] - \
                 recvs[min(len(self.stats.send_times), len(recvs)) - 1]
             self._send(wire.encode_cmd_pose_delay(delay, twc))
+
+    def _with_carried_imu(self, pkt: wire.FramePacket) -> wire.FramePacket:
+        """`pkt` with the IMU samples of the frames skipped since the last
+        tracked one before its own, sorted by timestamp; the carry empties."""
+        if not self._imu_carry:
+            return pkt
+        parts = self._imu_carry + [(pkt.imu_ts_ns, pkt.imu_gyro, pkt.imu_acc)]
+        self._imu_carry = []
+        ts, gyro, acc = (np.concatenate(x) for x in zip(*parts))
+        timing.count("edge.imu_carried", len(ts) - len(pkt.imu_ts_ns))
+        order = np.argsort(ts, kind="stable")
+        return dataclasses.replace(pkt, imu_ts_ns=ts[order], imu_gyro=gyro[order],
+                                   imu_acc=acc[order])
 
     def _send(self, payload: bytes):
         try:

@@ -209,7 +209,11 @@ class LocalMapper:
     def _cull_keyframes(self, k: int):
         """KeyFrameCulling: remove covisible KFs whose observations are
         >= 90% redundant, where redundant means >= 3 OTHER keyframes observe
-        the point at the same or a finer octave."""
+        the point at the same or a finer octave. On an inertial map only a
+        keyframe inside a temporal chain goes (with a predecessor and a
+        successor, as ORB-SLAM3's `mPrevKF && mNextKF`): a chain's last
+        keyframe is its tracking lane's anchor and the start of the lane's
+        next inertial edge."""
         m = self.map
         if m.n_keyframes < 8:
             return
@@ -244,13 +248,13 @@ class LocalMapper:
             if n_redundant / len(slots) > self.cfg.kf_cull_redundancy:
                 nxt = np.nonzero(m.kf_valid & (m.kf_prev == kf))[0]
                 if self.imu_calib is not None:
-                    # inertial gates: no culling before VIBA2, and no gap
-                    # of 3 s or more in the temporal chain
+                    # inertial gates: no culling before VIBA2, only inside a
+                    # chain, and no gap of 3 s or more in the temporal chain
                     if m.iba_stage < 2:
                         continue
                     prev = int(m.kf_prev[kf])
-                    if prev >= 0 and any(float(m.kf_ts[int(nk)] - m.kf_ts[prev]) >= 3.0
-                                         for nk in nxt):
+                    if prev < 0 or not len(nxt) or any(
+                            float(m.kf_ts[int(nk)] - m.kf_ts[prev]) >= 3.0 for nk in nxt):
                         continue
                     # the successors' edges now start at prev: merge this
                     # keyframe's preintegration into theirs

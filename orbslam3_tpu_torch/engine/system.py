@@ -267,15 +267,23 @@ class Slam:
         `FrameFeatures` at the tracker's `n_features` -> `track_features`
         with the packet's IMU samples. A new client id gets its lane. The
         server's lane threads call this concurrently; they take turns (the
-        JAX package lets them run at once on the shared map)."""
-        feats = features_from_arrays(pkt.uv, pkt.desc, capacity=self.cfg.tracker.n_features,
-                                     device=self.device)
-        imu = list(zip(pkt.imu_ts_ns * 1e-9, pkt.imu_gyro, pkt.imu_acc))
-        with self._edge_lock:
+        JAX package lets them run at once on the shared map). Stage
+        `edge.lock_wait` runs from entry until the lock is held, with the
+        packet's `edge.features` inside it."""
+        with timing.stage("edge.lock_wait", client=client_id):
+            with timing.stage("edge.features", client=client_id):
+                feats = features_from_arrays(pkt.uv, pkt.desc,
+                                             capacity=self.cfg.tracker.n_features,
+                                             device=self.device)
+            imu = list(zip(pkt.imu_ts_ns * 1e-9, pkt.imu_gyro, pkt.imu_acc))
+            self._edge_lock.acquire()
+        try:
             if client_id not in self.trackers:
                 self.add_client(client_id)
             return self.track_features(feats, pkt.timestamp_ns * 1e-9, client_id=client_id,
                                        imu=imu)
+        finally:
+            self._edge_lock.release()
 
     def _after_track(self, tracker: Tracker):
         """Failure ladder: on LOST, store a mature map and respawn, or reset

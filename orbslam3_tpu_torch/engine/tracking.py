@@ -34,7 +34,10 @@ projection search, pose optimization and two-view initialization run on
 - relocalization through the `relocalizer` callable (`Slam._relocalize`):
   a secondary client or a tracker in localization mode relocalizes where
   the primary would initialize, a recently lost frame tries it, and a
-  lost tracker in localization mode keeps trying it;
+  lost tracker in localization mode keeps trying it; on an inertial map
+  the tracker then tracks visually until its next keyframe, from which its
+  inertial chain restarts (the relocalized frame's reference keyframe may
+  be another lane's, at another time);
 - localization mode (`only_tracking`): no keyframes;
 - the per-frame relative-pose log for trajectory export.
 """
@@ -62,6 +65,11 @@ from orbslam3_tpu_torch.vision import matcher
 from orbslam3_tpu_torch.vision import stereo as stereo_m
 from orbslam3_tpu_torch.vision.frame import FrameFeatures, extract_features
 from orbslam3_tpu_torch.vision.twoview import reconstruct_two_views
+
+# the most the frame's preintegration may fall short of the frame interval
+# (its last sample before the frame's timestamp) for the velocity from poses
+# and IMU: two samples at EuRoC's 200 Hz
+IMU_VELOCITY_DT_SLACK_S = 0.01
 
 
 class TrackingState(enum.Enum):
@@ -176,6 +184,9 @@ class Tracker:
         self._imu_queue: list[tuple[float, np.ndarray, np.ndarray]] = []
         self._pre_cur = None
         self._pre_frames: list = []
+        # whether `_pre_frames` start at `ref_kf`: False from a
+        # relocalization until this tracker's next keyframe
+        self._pre_from_ref = True
         self._imu_prior = None
         # the VI pose solve's CUDA graphs and their buffers, this tracker's own
         self._vi_graphs = PoseInertialGraphs()
@@ -227,13 +238,18 @@ class Tracker:
 
     def _preintegrate_to(self, ts: float):
         """`Tracking::PreintegrateIMU`: integrate the queued samples in
-        (last frame's ts, ts] on the device."""
+        (last frame's ts, ts] on the device, the first
+        `imu_samples_per_frame` of them (counter `track.imu_truncated`: the
+        samples cut beyond)."""
         if self.imu_calib is None or self._last_ts is None:
             return None
         t0, t1 = self._last_ts, ts
         take = [q for q in self._imu_queue if t0 < q[0] <= t1 + 1e-6]
         self._imu_queue = [q for q in self._imu_queue if q[0] > t1 + 1e-6]
-        take = take[:self.cfg.imu_samples_per_frame]
+        cap = self.cfg.imu_samples_per_frame
+        if len(take) > cap:
+            timing.count("track.imu_truncated", len(take) - cap)
+            take = take[:cap]
         if not take:
             return None
         stamps = np.asarray([t0] + [q[0] for q in take])
@@ -269,12 +285,26 @@ class Tracker:
                 v2.astype(np.float32))
 
     def _update_velocity(self, R_prev, t_prev, dt: float):
-        """Body velocity by finite difference over the last frame."""
+        """Body velocity at this frame from the last frame's pose and this
+        one's. On an inertial map with the frame's preintegration over the
+        same interval, the velocity the two poses and the IMU agree on:
+        v1 = (p2 - p1 - g dt^2 / 2 - R1 dP) / dt, v2 = v1 + g dt + R1 dV
+        (a finite difference is the mean velocity over the interval, off by
+        whatever the motion shook within it); else the finite difference."""
         if self.imu_calib is None or dt <= 1e-6:
             return
-        _, twb_prev, _, _ = self._body_pose(R_prev, t_prev)
+        Rwb_prev, twb_prev, _, _ = self._body_pose(R_prev, t_prev)
         _, twb_cur, _, _ = self._body_pose(self.R_cw, self.t_cw)
-        self._vel_w = ((twb_cur - twb_prev) / dt).astype(np.float32)
+        pre = self._pre_cur
+        if (self.map.imu_initialized and pre is not None
+                and abs(float(pre.dT) - dt) < IMU_VELOCITY_DT_SLACK_S):
+            _, dV, dP, _ = (x.cpu().numpy() for x in preint.corrected_deltas(
+                pre, self._t(self._current_bias())))
+            g = np.array([0.0, 0.0, -preint.GRAVITY])
+            v_prev = (twb_cur - twb_prev - 0.5 * g * dt * dt - Rwb_prev @ dP) / dt
+            self._vel_w = (v_prev + g * dt + Rwb_prev @ dV).astype(np.float32)
+        else:
+            self._vel_w = ((twb_cur - twb_prev) / dt).astype(np.float32)
 
     # ------------------------------------------------------------------ api
     def _extract(self, img) -> FrameFeatures:
@@ -459,6 +489,7 @@ class Tracker:
         self._vel_R = np.eye(3, dtype=np.float32)
         self._vel_t = np.zeros(3, np.float32)
         self._pre_frames = []  # the inertial chain starts at this keyframe
+        self._pre_from_ref = True
         self.state = TrackingState.OK
         self._frames_since_kf = 0
 
@@ -524,6 +555,7 @@ class Tracker:
         if self.imu_calib is not None and self._pre_frames:
             pre_init = preint.merge_all(self._pre_frames)
         self._pre_frames = []
+        self._pre_from_ref = True
         k1 = self.map.add_keyframe(
             R2, t2, ts, self.frame_id, cur_np["uv"], cur_np["octave"],
             cur_np["angle"], cur_np["desc"], cur_np["valid"], obs1, prev_kf=k0,
@@ -761,7 +793,7 @@ class Tracker:
                 pre, prior, fixed = self._pre_cur, self._imu_prior, False
                 anchor = None  # the prior's state
             else:
-                if not self._pre_frames:
+                if not self._pre_frames or not self._pre_from_ref:
                     return None
                 pre, prior, fixed = preint.merge_all(self._pre_frames), None, True
                 k = self.ref_kf
@@ -863,6 +895,14 @@ class Tracker:
         self._vel_t = np.zeros(3, np.float32)
         self._set_ref_kf(int(ref_kf))
         self._lost_count = 0
+        if self.imu_calib is not None:
+            # the samples so far do not start at the new reference keyframe,
+            # and the velocity belongs to the frames before the jump: track
+            # visually (as ORB-SLAM3 for mnFramesToResetIMU frames) until a
+            # keyframe of this tracker, with no inertial link into it
+            self._pre_frames = []
+            self._pre_from_ref = False
+            self._vel_w = None
         return True
 
     def _need_new_keyframe(self, n_in: int, ts: float = None) -> bool:
@@ -897,9 +937,10 @@ class Tracker:
             # the per-frame windows since the last keyframe become one
             # KF->KF inertial edge (mpImuPreintegratedFromLastKF)
             pre_kf = None
-            if self.imu_calib is not None and self._pre_frames:
+            if self.imu_calib is not None and self._pre_frames and self._pre_from_ref:
                 pre_kf = preint.merge_all(self._pre_frames)
             self._pre_frames = []
+            self._pre_from_ref = True
             k = self.map.add_keyframe(
                 self.R_cw, self.t_cw, ts, self.frame_id, f["uv"], f["octave"],
                 f["angle"], f["desc"], f["valid"], mp_ids.copy(),
