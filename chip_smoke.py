@@ -115,10 +115,12 @@ The phases' inputs are rendered ahead, in RENDER_WORKERS spawned
 processes, while the card runs the earlier phases; each phase logs how
 long it waited for its inputs. Each path is driven with the launch counters set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched. The
-inertial paths (mono-inertial, stereo-inertial, the edge server, the
-EuRoC and TUM-VI runners) print their visual-inertial pose solves, and
-fail unless every one replayed a captured CUDA graph; the async phase,
-monocular, prints its count too. The
+mono, stereo, RGB-D, vocabulary and async phases and the inertial paths
+(mono-inertial, stereo-inertial, the edge server, the EuRoC and TUM-VI
+runners) print their retry-ladder attempts, and fail unless every attempt
+replayed captured CUDA graphs; the inertial paths print their
+visual-inertial pose solves and fail unless every one replayed a captured
+CUDA graph; the async phase, monocular, prints its count too. The
 timings phase times both kernels by replaying a captured CUDA graph (so
 their device time is not hidden behind host launch overhead) at the inputs
 the SLAM runs handed them: K1 at one captured mask of each matcher policy
@@ -1468,7 +1470,8 @@ def vocab_slam(seqs: dict, camera: Camera, plain: bool = False) -> dict:
         LoopCloser._correct_loop, LoopCloser._merge_maps = saved
         timing.enable(False)
     out = dict(report=report, launches=launches, sessions=sessions,
-               corrections=corrections, stages=timing.stats(), slam=slam)
+               corrections=corrections, stages=timing.stats(), counts=timing.counts(),
+               slam=slam)
     if not plain:
         out["k1_inputs"] = {kw["policy"]: (hamming._as_words(a), hamming._as_words(b), mk)
                             for (a, b, mk), kw in k1_calls}
@@ -1511,6 +1514,7 @@ def check_vocab(run: dict, smi: str) -> None:
         f"(bound {RELOC_TOL}; JAX package {ref['reloc_centre_err_m']} m, "
         f"{ref['reloc_rot_err_deg']} deg); localization mode: tracked {lz['tracked']}, "
         f"keyframes added {lz['keyframes_added']}")
+    log_ladder_attempts("vocabulary phase", run["counts"])
     for kind, delta in run["corrections"]:
         log(f"launches during the {kind} correction: {json.dumps(delta, sort_keys=True)}")
     base = {}
@@ -1922,6 +1926,18 @@ def report_times(run: dict, smi: str, entry: str = "track_monocular") -> None:
             f"each stage ends in a host read of its result)")
 
 
+def log_ladder_attempts(path: str, counts: dict) -> None:
+    """Print a run's retry-ladder attempts (`utils.timing` counters):
+    replayed from CUDA graphs, graph pairs captured, run eagerly. On the
+    card every tracking path replays every attempt and runs none eagerly."""
+    replayed, captured, eager = (counts.get(f"track.pose_{k}", 0)
+                                 for k in ("replay", "capture", "eager"))
+    log(f"{path}: ladder attempts {replayed} replayed from {captured} captured graph "
+        f"pair(s), {eager} eager")
+    if replayed == 0 or eager:
+        raise AssertionError(f"{path}: {replayed} ladder attempts replayed, {eager} eager")
+
+
 def log_vi_solves(path: str, counts: dict, inertial: bool = True) -> None:
     """Print a run's visual-inertial pose solves (`utils.timing` counters):
     replayed from a CUDA graph, graphs captured, solved eagerly. On the card
@@ -2009,6 +2025,7 @@ def depth_phase(path: str, yaml_text: str, sensor: str, frames, stamps, R_gt, t_
             f"gravity tilt {met['gravity_tilt_deg']:.3f} deg (JAX package "
             f"{reference['gravity_tilt_deg']} deg)")
         log_vi_solves(path, run["counts"])
+    log_ladder_attempts(path, run["counts"])
     log(f"launches on the {path} path: {json.dumps(launches, sort_keys=True)}")
     report_times(run, smi, "track_stereo" if stereo else "track_rgbd")
     if not 0 <= init <= MAX_DEPTH_INIT_FRAME:
@@ -2139,6 +2156,7 @@ def check_async(arun: dict, sync_run: dict, R_gt, t_gt, stamps, smi: str) -> Non
         f"{ate_sync:.5f} m; bound {REFERENCE_ATE * ATE_MARGIN:.5f} m); worker {worker}; "
         f"keyframes mapped {len(arun['kf_ms'])}; launches "
         f"{json.dumps(arun['launches'], sort_keys=True)}")
+    log_ladder_attempts("async mapping (monocular)", arun["counts"])
     log_vi_solves("async mapping (monocular)", arun["counts"], inertial=False)
     for name, r in (("async", arun), ("synchronous", sync_run)):
         v = np.asarray(r["frame_ms"])
@@ -2922,6 +2940,7 @@ def runner_phase(seqs: dict, root: str, smi: str) -> dict:
                     audit_frames=RUNNER_AUDIT_FRAMES)
     check_runner("EuRoC runner (mono-inertial)", eu, RUNNER_REFERENCE["euroc"],
                  RUNNER_EUROC["n_frames"], smi, POLICIES)
+    log_ladder_attempts("EuRoC runner (mono-inertial)", eu["counts"])
     log_vi_solves("EuRoC runner (mono-inertial)", eu["counts"])
     for i, a in sorted(eu["audits"].items()):
         log(f"transfer_audit, EuRoC frame {i}: h2d {a['h2d']}, d2h {a['d2h']}, synchronize "
@@ -2943,6 +2962,7 @@ def runner_phase(seqs: dict, root: str, smi: str) -> dict:
     vi = runner_run(run_euroc, vi_args, snapshot_at=RUNNER_PREFIX)
     check_runner("TUM-VI runner (fisheye stereo-inertial)", vi, RUNNER_REFERENCE["tumvi"],
                  RUNNER_TUMVI["n_frames"], smi, FISHEYE_POLICIES, k2_per_frame=2)
+    log_ladder_attempts("TUM-VI runner (fisheye stereo-inertial)", vi["counts"])
     log_vi_solves("TUM-VI runner (fisheye stereo-inertial)", vi["counts"])
     vplain = runner_run(run_euroc, vi_args + ["--max-frames", str(RUNNER_PREFIX)],
                         snapshot_at=RUNNER_PREFIX, plain=True)
@@ -3169,6 +3189,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
             f"{ATE_MARGIN})")
         log(f"launches on the mono SLAM path: {json.dumps(slam_launches, sort_keys=True)}")
         report_times(run, smi)
+        log_ladder_attempts("mono SLAM", run["counts"])
         if not 0 <= init <= MAX_INIT_FRAME:
             raise AssertionError(f"the map initialized at frame {init}, not by "
                                  f"{MAX_INIT_FRAME}")
@@ -3213,6 +3234,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         log(f"launches on the mono-inertial SLAM path: "
             f"{json.dumps(vi_launches, sort_keys=True)}")
         report_times(vi, smi)
+        log_ladder_attempts("mono-inertial SLAM", vi["counts"])
         log_vi_solves("mono-inertial SLAM", vi["counts"])
         if not 0 <= vinit <= MAX_INIT_FRAME:
             raise AssertionError(f"the VI map initialized at frame {vinit}")
@@ -3285,6 +3307,7 @@ def phases(futures: dict, pool, runner_root: str) -> int:
         log(f"edge phase: {time.perf_counter() - t0:.1f} s for the kernel run over "
             f"{len(plan)} packets")
         check_edge(edge, plan, smi)
+        log_ladder_attempts("edge server", edge["counts"])
         log_vi_solves("edge server", edge["counts"])
         edge_plain = edge_run(seq, batches, plan, plain=True)
         check_edge_agree(edge, edge_plain)

@@ -53,7 +53,7 @@ import torch
 
 from orbslam3_tpu_torch import device as device_policy
 from orbslam3_tpu_torch.convert import words_to_int32
-from orbslam3_tpu_torch.engine.track_program import fused_track_pose
+from orbslam3_tpu_torch.engine.track_program import TrackPoseGraphs, fused_track_pose
 from orbslam3_tpu_torch.imu import init as imu_init
 from orbslam3_tpu_torch.imu import preintegration as preint
 from orbslam3_tpu_torch.opt.pose_gn import optimize_pose
@@ -188,8 +188,10 @@ class Tracker:
         # relocalization until this tracker's next keyframe
         self._pre_from_ref = True
         self._imu_prior = None
-        # the VI pose solve's CUDA graphs and their buffers, this tracker's own
+        # the VI pose solve's and the retry ladder's CUDA graphs and their
+        # buffers, this tracker's own
         self._vi_graphs = PoseInertialGraphs()
+        self._pose_graphs = TrackPoseGraphs()
         self._frame_bias: Optional[np.ndarray] = None
         self._vel_w: Optional[np.ndarray] = None
         self._map_change_seen = -1
@@ -672,7 +674,8 @@ class Tracker:
             valid_pt = self._t(valid_p)
 
         # the retry ladder (narrow -> wide -> recently-lost wide -> local
-        # refinement) with its pose GN; K1 reads the packed words as stored
+        # refinement) with its pose GN; K1 reads the packed words as stored.
+        # On the card each attempt replays the tracker's graphs of its shape
         stereo = {}
         if self._cur_uright is not None and cfg.bf > 0:
             stereo = dict(u_right=self._t(self._cur_uright, torch.float32), bf=cfg.bf)
@@ -685,7 +688,7 @@ class Tracker:
                 [cfg.proj_radius, cfg.proj_radius_wide, cfg.proj_radius_wide * 2,
                  cfg.local_radius],
                 cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
-                device=self.device, **stereo)
+                device=self.device, graphs=self._pose_graphs, **stereo)
             if not success:
                 # TrackReferenceKeyFrame: the prediction is too far off for
                 # any projection window; match the reference keyframe by
@@ -701,7 +704,7 @@ class Tracker:
                     False, [cfg.proj_radius, cfg.proj_radius, cfg.proj_radius,
                             cfg.local_radius],
                     cfg.min_track_matches, cfg.min_inliers_ok, max_dist=cfg.max_mp_dist,
-                    device=self.device, **stereo)
+                    device=self.device, graphs=self._pose_graphs, **stereo)
                 if not success:
                     return False
             res = {k: v.cpu().numpy() for k, v in res.items()}

@@ -163,8 +163,13 @@ def masked_match_ratio(planes_a: torch.Tensor, planes_b: torch.Tensor,
     """Best match + Lowe ratio test over a candidate mask; the single entry
     point of every Search* policy. Returns (idx, best_dist, ok)."""
     idx, best, second = masked_top2(planes_a, planes_b, mask, policy=policy)
-    ok = (best <= max_dist) & (best.float() < ratio * second.float())
-    return idx, best, ok
+    return idx, best, ratio_test(best, second, max_dist, ratio)
+
+
+def ratio_test(best: torch.Tensor, second: torch.Tensor, max_dist: int,
+               ratio: float) -> torch.Tensor:
+    """Lowe's ratio test on K1's best and runner-up distances."""
+    return (best <= max_dist) & (best.float() < ratio * second.float())
 
 
 def mutual_filter(idx_ab: torch.Tensor, ok_ab: torch.Tensor,

@@ -74,10 +74,13 @@ def optimize_pose(
     device=None,
     u_r: torch.Tensor | None = None,  # (N,) virtual right u; < 0 = monocular
     bf=None,                          # baseline * fx, with `u_r`
+    normalize=lie.so3_normalize,      # puts R back on SO(3) after each round
 ):
     """Returns (R, t, inliers, n_inliers). After each round, observations
     over their chi2 gate are excluded and may re-enter later, as the
-    reference's g2o edge levels allow."""
+    reference's g2o edge levels allow. Inputs already on the device, `bf`
+    among them as a 0-dim tensor, and `normalize=lie.so3_polar64` leave no
+    host read and no host-to-device copy, for a CUDA graph to hold."""
     dev = device_policy.resolve(device)
     R, t, points, uv, info, valid = (x.to(dev) for x in (R0, t0, points, uv,
                                                          info, valid))
@@ -103,7 +106,7 @@ def optimize_pose(
             dR, dt = lie.se3_exp(dx)
             R, t = dR @ R, dR @ t + dt
         # re-orthonormalise: 40 f32 compositions leave shear in R otherwise
-        R = lie.so3_normalize(R)
+        R = normalize(R)
         res, _, xc = reprojection_residuals(R, t, points, uv, camera, u_r, bf)
         chi2 = torch.sum(res * res, dim=-1) * info
         inlier = (valid.to(R.dtype) * (chi2 < gate).to(R.dtype)

@@ -6,7 +6,9 @@ orbit trajectory (`orbit_trajectory`), and per-frame `FrameFeatures`
 synthesized from the field with pixel noise, bit flips, dropout and
 distractors (`render_features`), and the IMU generators: finite-difference
 samples along a pose sequence (`imu_orbit_samples`) and an exact float64
-integration of analytic body rates (`simulate_imu`, `ImuTrajectory`).
+integration of analytic body rates (`simulate_imu`, `ImuTrajectory`); and
+one tracking frame at the tracker's shapes for the retry ladder's card
+tests and timing (`tracking_frame`).
 """
 
 from __future__ import annotations
@@ -290,3 +292,56 @@ def simulate_imu(duration=2.0, rate=200.0, substeps=40, seed=0, g=9.81,
         t=np.asarray(states_t), R_wb=np.asarray(states_R),
         p_wb=np.asarray(states_p), v_wb=np.asarray(states_v),
         gyro=np.asarray(gyro_s), acc=np.asarray(acc_s), dt=np.asarray(dt_s))
+
+
+def tracking_frame(dev, K: int = 2048, cap: int = 1000, n_pts: int = 600, stereo: bool = False,
+                   seed: int = 3, offset=(0.0, 0.0, 0.01)):
+    """One tracking frame at the tracker's shapes: `n_pts` map points 4-12 m
+    before a pinhole camera at EuRoC's intrinsics, yawed and shifted; the frame's features at
+    their projections (0.3 px noise, octaves 0-2, shuffled among `cap` rows
+    whose rest are clutter with random descriptors), each sharing its
+    point's descriptor; the points' distance bands and normals as the map
+    keeps them; with `stereo`, right coordinates for 60% of the features
+    (bf 40). Returns (the frame tuple as `fused_track_pose` hands it on,
+    on `dev`; R_true; the prediction t_true + `offset`)."""
+    from orbslam3_tpu_torch.core.camera import Camera
+    rng = np.random.default_rng(seed)
+    cam = Camera.pinhole(458.654, 457.296, 367.215, 248.375, device="cpu")
+    pts = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts),
+                    rng.uniform(4, 12, n_pts)], -1).astype(np.float32)
+    yaw = 0.01 * seed
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    t = np.array([0.05 * seed, -0.02, 0.1], np.float32)
+    xc = pts @ R.T + t
+    uv = cam.project(torch.from_numpy(xc)).numpy()
+    inside = (uv[:, 0] > 5) & (uv[:, 0] < 747) & (uv[:, 1] > 5) & (uv[:, 1] < 475)
+    octave = rng.integers(0, 3, n_pts).astype(np.int32)
+    words = rng.integers(-2 ** 31, 2 ** 31, (K + cap, 8)).astype(np.int32)
+    center = -R.T @ t
+    dist = np.linalg.norm(pts - center, axis=-1)
+    mp = dict(pos=np.zeros((K, 3), np.float32), words=words[:K].copy(),
+              valid=np.zeros(K, bool), normal=np.zeros((K, 3), np.float32),
+              min_d=np.zeros(K, np.float32), max_d=np.zeros(K, np.float32))
+    mp["pos"][:n_pts], mp["valid"][:n_pts] = pts, inside
+    mp["normal"][:n_pts] = (pts - center) / dist[:, None]
+    mp["max_d"][:n_pts] = dist * 1.2 ** octave
+    mp["min_d"][:n_pts] = mp["max_d"][:n_pts] / 1.2 ** 7
+    perm = rng.permutation(cap)[:n_pts]
+    f_uv = rng.uniform([0, 0], [752, 480], (cap, 2)).astype(np.float32)
+    f_uv[perm] = uv + rng.normal(0, 0.3, uv.shape)
+    f_words = words[K:].copy()
+    f_words[perm] = mp["words"][:n_pts]
+    f_oct = rng.integers(0, 8, cap).astype(np.int32)
+    f_oct[perm] = octave
+    u_right = bf = None
+    if stereo:
+        u_r = np.full(cap, -1.0, np.float32)
+        u_r[perm] = np.where(rng.random(n_pts) < 0.6,
+                             f_uv[perm, 0] - 40.0 / xc[:, 2] + rng.normal(0, 0.3, n_pts), -1.0)
+        u_right, bf = torch.from_numpy(u_r).to(dev), 40.0
+    d = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    frame = (d(mp["pos"]), d(mp["words"]), d(mp["valid"]), d(mp["normal"]), d(mp["min_d"]),
+             d(mp["max_d"]), cam.to(dev), d(f_uv), d(f_words), d(f_oct),
+             torch.ones(cap, dtype=torch.bool, device=dev), u_right, bf)
+    return frame, d(R), d(t + np.asarray(offset, np.float32))

@@ -55,6 +55,61 @@ def _resolve_duplicates(best_feat, best_dist, ok, n_feats: int):
     return keep & (first[feat] == order)
 
 
+def projection_window(
+    mp_pos, mp_valid, R, t, camera,  # (K,3), (K,) bool
+    f_uv, f_octave, f_valid,         # (N,2), (N,) int, (N,) bool
+    radius,                          # px search window at octave 0
+    mp_normal=None, mp_min_dist=None, mp_max_dist=None,
+):
+    """The candidate mask of `search_by_projection`, the part before K1:
+    map points projected into the frame, octave-scaled windows and, with the
+    point statistics given, the `isInFrustum` gates. No host read and no
+    host-to-device copy (`radius` may be a 0-dim tensor on the device), so a
+    CUDA graph can hold it. Returns (mask (K,N) bool, in_frustum (K,))."""
+    dev = mp_pos.device
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    uv, _depth, vis = project_points(R, t, camera, mp_pos)
+    vis = vis & mp_valid
+
+    d2 = torch.sum(torch.square(uv[:, None, :] - f_uv[None, :, :]), dim=-1)
+    r = radius * (1.2 ** f_octave.float())  # octave-scaled window
+    window = d2 <= torch.square(r)[None, :]
+
+    oct_ok = None
+    if mp_max_dist is not None:
+        center = -(R.T @ t)
+        pw = mp_pos - center
+        dist = torch.linalg.norm(pw, dim=-1)
+        in_band = ((dist >= 0.8 * mp_min_dist) & (dist <= 1.2 * mp_max_dist)
+                   & (mp_max_dist > 0))
+        vis = vis & in_band
+        if mp_normal is not None:
+            cosang = torch.sum(pw * mp_normal, dim=-1) / torch.clamp(dist, min=1e-9)
+            has_n = torch.linalg.norm(mp_normal, dim=-1) > 1e-6
+            vis = vis & (~has_n | (cosang > 0.5))
+        # PredictScale: level = ceil(log(maxDist/dist) / log 1.2)
+        log_scale = torch.log(torch.full((), 1.2, dtype=torch.float32, device=dev))
+        lvl = torch.ceil(torch.log(torch.clamp(mp_max_dist, min=1e-9)
+                                   / torch.clamp(dist, min=1e-9)) / log_scale)
+        lvl = torch.clamp(lvl, 0, 7).to(torch.int32)
+        oct_ok = torch.abs(lvl[:, None] - f_octave[None, :]) <= 1
+
+    mask = window & vis[:, None] & f_valid[None, :]
+    if oct_ok is not None:
+        mask = mask & oct_ok
+    return mask, vis
+
+
+def projection_matches(idx, best, second, vis, n_feats: int,
+                       max_dist: int = ham.TH_HIGH, ratio: float = 0.9):
+    """The part of `search_by_projection` after K1: the ratio test on K1's
+    best and runner-up, in-frustum rows only, one map point per feature.
+    Returns (matched (K,), n_matches)."""
+    ok = ham.ratio_test(best, second, max_dist, ratio) & vis
+    keep = _resolve_duplicates(idx, best, ok, n_feats)
+    return keep, torch.sum(keep)
+
+
 def search_by_projection(
     mp_pos, mp_planes, mp_valid,     # (K,3), (K,256) +/-1, (K,) bool
     R, t, camera,
@@ -66,7 +121,8 @@ def search_by_projection(
     device=None,
 ):
     """Project map points into the frame and associate them to keypoints
-    within the window (reference `SearchByProjection`, tracking overload).
+    within the window (reference `SearchByProjection`, tracking overload):
+    `projection_window`, K1 under policy "tracker", `projection_matches`.
 
     With the point statistics given, applies the `isInFrustum` gates: view
     distance in [0.8 min, 1.2 max], viewing angle cos > 0.5, and the
@@ -78,46 +134,12 @@ def search_by_projection(
     mp_pos, mp_planes, mp_valid, R, t, f_uv, f_planes, f_octave, f_valid = (
         x.to(dev) for x in (mp_pos, mp_planes, mp_valid, R, t, f_uv, f_planes,
                             f_octave, f_valid))
-    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
-    camera = camera.to(dev)
-    uv, _depth, vis = project_points(R, t, camera, mp_pos)
-    vis = vis & mp_valid
-
-    d2 = torch.sum(torch.square(uv[:, None, :] - f_uv[None, :, :]), dim=-1)
-    r = radius * (1.2 ** f_octave.float())  # octave-scaled window
-    window = d2 <= torch.square(r)[None, :]
-
-    oct_ok = None
-    if mp_max_dist is not None:
-        mp_max_dist, mp_min_dist = mp_max_dist.to(dev), mp_min_dist.to(dev)
-        center = -(R.T @ t)
-        pw = mp_pos - center
-        dist = torch.linalg.norm(pw, dim=-1)
-        in_band = ((dist >= 0.8 * mp_min_dist) & (dist <= 1.2 * mp_max_dist)
-                   & (mp_max_dist > 0))
-        vis = vis & in_band
-        if mp_normal is not None:
-            mp_normal = mp_normal.to(dev)
-            cosang = torch.sum(pw * mp_normal, dim=-1) / torch.clamp(dist, min=1e-9)
-            has_n = torch.linalg.norm(mp_normal, dim=-1) > 1e-6
-            vis = vis & (~has_n | (cosang > 0.5))
-        # PredictScale: level = ceil(log(maxDist/dist) / log 1.2)
-        log_scale = torch.log(torch.tensor(1.2, dtype=torch.float32, device=dev))
-        lvl = torch.ceil(torch.log(torch.clamp(mp_max_dist, min=1e-9)
-                                   / torch.clamp(dist, min=1e-9)) / log_scale)
-        lvl = torch.clamp(lvl, 0, 7).to(torch.int32)
-        oct_ok = torch.abs(lvl[:, None] - f_octave[None, :]) <= 1
-
-    mask = window & vis[:, None] & f_valid[None, :]
-    if oct_ok is not None:
-        mask = mask & oct_ok
-
-    idx, best, ok = ham.masked_match_ratio(mp_planes, f_planes, mask,
-                                           max_dist=max_dist, ratio=ratio,
-                                           policy="tracker")
-    ok = ok & vis
-    keep = _resolve_duplicates(idx, best, ok, f_uv.shape[0])
-    return idx, best, keep, torch.sum(keep), vis
+    stats = [None if x is None else x.to(dev) for x in (mp_normal, mp_min_dist, mp_max_dist)]
+    mask, vis = projection_window(mp_pos, mp_valid, R, t, camera.to(dev), f_uv, f_octave,
+                                  f_valid, radius, *stats)
+    idx, best, second = ham.masked_top2(mp_planes, f_planes, mask, policy="tracker")
+    keep, n = projection_matches(idx, best, second, vis, f_uv.shape[0], max_dist, ratio)
+    return idx, best, keep, n, vis
 
 
 HISTO_LENGTH = 30  # reference ORBmatcher.cc:41 rotation histogram bins

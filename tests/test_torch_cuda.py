@@ -16,6 +16,7 @@ import torch
 from orbslam3_tpu_torch import _build
 from orbslam3_tpu_torch.kernels import hamming, patch
 from orbslam3_tpu_torch.kernels import orb_descriptor as desc_k
+from orbslam3_tpu_torch.utils.synth import tracking_frame
 from orbslam3_tpu_torch.vision.frame import extract_features
 from torch_parity import CASES, cuda, textured_image, top2_case  # noqa: F401
 
@@ -483,6 +484,192 @@ def test_vi_pose_capture_beside_a_launching_thread(cuda):
     assert not other.is_alive() and not errors, errors
     _same_as_its_eager_run(got, graph, case, cuda)
     _close_to(got, _eager(case, "cpu"), 1e-4)
+
+
+POSE_RADII = (15.0, 30.0, 60.0, 8.0)
+
+
+def _pose_graph(graphs, frame):
+    """The frame's graph of `graphs`, its buffers loaded."""
+    graph = graphs.get(frame[0].shape[0], frame[7].shape[0], frame[11] is not None, frame[6],
+                       100, frame[0].device)
+    graph.load(*frame)
+    return graph
+
+
+def _same_attempt(got, ref):
+    """Bit for bit, every field."""
+    assert set(got) == set(ref)
+    for key in ref:
+        assert torch.equal(got[key], ref[key]), key
+
+
+def _close_attempt(got, ref, atol):
+    """Indices, masks and counts exact; R and t within `atol`."""
+    for key in ("sel", "fidx", "vsel", "inl", "nm", "n_in", "fr", "oct", "uv"):
+        assert torch.equal(got[key].cpu(), ref[key].cpu()), key
+    for key in ("R", "t"):
+        assert (got[key].cpu() - ref[key].cpu()).abs().max() <= atol, key
+
+
+def _ladder(frame, R, t, radii=POSE_RADII, min_inliers=15, graphs=None):
+    from orbslam3_tpu_torch.engine.track_program import fused_track_pose
+    return fused_track_pose(*frame[:11], R, t, R, t, False, radii, 20, min_inliers,
+                            device=frame[0].device, u_right=frame[11], bf=frame[12],
+                            graphs=graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_track_pose_graph_replays_the_attempt(cuda, stereo):
+    """A ladder attempt replayed from its two graphs around K1: bit for bit
+    the same bodies run eagerly on the graph's buffers; within 1e-4 of the
+    eager attempt on the card (SVD where the graph takes `so3_polar64`), its
+    indices, masks and counts exact."""
+    from orbslam3_tpu_torch.engine import track_program as tp
+    frame, R, t = tracking_frame(cuda, stereo=stereo)
+    graph = _pose_graph(tp.TrackPoseGraphs(), frame)
+    got = tp._own(graph.replay(R, t, 15.0))
+    assert graph._pre is not None and graph._post is not None
+    _same_attempt(got, graph.eager(R, t, 15.0))
+    _close_attempt(got, tp._eager_attempt(frame, 100, R, t, 15.0), 1e-4)
+    assert int(got["nm"]) > 300 and int(got["n_in"]) > 300
+
+
+@pytest.mark.cuda
+def test_track_pose_graph_replays_two_frames_and_radii(cuda):
+    """One graph pair serves two frames at two radii, each replay its own
+    frame's eager answer; the pair is captured once."""
+    from orbslam3_tpu_torch.engine import track_program as tp
+    from orbslam3_tpu_torch.utils import timing
+    graphs = tp.TrackPoseGraphs()
+    cases = [(*tracking_frame(cuda, seed=3), 15.0),
+             (*tracking_frame(cuda, seed=4, offset=(0.2, 0, 0)), 30.0)]
+    captures = timing.counts().get("track.pose_capture", 0)
+    got, pairs = [], []
+    for frame, R, t, radius in cases:
+        graph = _pose_graph(graphs, frame)
+        got.append(tp._own(graph.replay(R, t, radius)))
+        pairs.append((graph._pre, graph._post))
+    assert len(graphs.graphs) == 1 and pairs[0] == pairs[1]
+    assert timing.counts()["track.pose_capture"] - captures == 1
+    for out, (frame, R, t, radius) in zip(got, cases):
+        _same_attempt(out, _pose_graph(graphs, frame).eager(R, t, radius))
+    assert not torch.equal(got[0]["R"], got[1]["R"]) and got[0]["nm"] != got[1]["nm"]
+
+
+@pytest.mark.cuda
+def test_the_acquisition_survives_the_refinement_replay(cuda):
+    """`fused_track_pose` with graphs: with a refinement gate no attempt
+    meets, it returns the acquisition (cloned out of the graph before the
+    refinement's replay) with the refinement's frustum mask; with the
+    tracker's gate it agrees with the eager ladder on the card."""
+    from orbslam3_tpu_torch.engine import track_program as tp
+    frame, R, t = tracking_frame(cuda, offset=(0.2, 0.0, 0.0))
+    graphs = tp.TrackPoseGraphs()
+    ok, got = _ladder(frame, R, t, min_inliers=10 ** 6, graphs=graphs)
+    assert ok
+    graph = _pose_graph(graphs, frame)
+    acq = tp._own(graph.eager(R, t, POSE_RADII[0]))
+    refine = graph.eager(acq["R"], acq["t"], POSE_RADII[3])
+    _same_attempt(dict(got, fr=acq["fr"]), acq)
+    assert torch.equal(got["fr"], refine["fr"]) and not torch.equal(got["R"], refine["R"])
+    ok, got = _ladder(frame, R, t, graphs=graphs)
+    ok_ref, ref = _ladder(frame, R, t)
+    assert ok and ok_ref
+    _close_attempt(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_track_pose_graphs_key_on_k_cap_and_the_stereo_row(cuda):
+    """Each (K, cap, stereo row) captures its graph pair once; every attempt
+    on the card replays, none runs eagerly."""
+    from orbslam3_tpu_torch.engine import track_program as tp
+    from orbslam3_tpu_torch.utils import timing
+    names = ("track.pose_capture", "track.pose_replay", "track.pose_eager",
+             "track.ladder_attempt")
+
+    def counted():
+        return [timing.counts().get(n, 0) for n in names]
+
+    graphs = tp.TrackPoseGraphs()
+    start = counted()
+    cases = [tracking_frame(cuda), tracking_frame(cuda, seed=5), tracking_frame(cuda, stereo=True),
+             tracking_frame(cuda, K=1024, cap=500, n_pts=300)]
+    for frame, R, t in cases:
+        ok, got = _ladder(frame, R, t, graphs=graphs)
+        ok_ref, ref = _ladder(frame, R, t)
+        assert ok and ok_ref
+        _close_attempt(got, ref, 1e-4)
+    assert {k[:3] for k in graphs.graphs} == {(2048, 1000, False), (2048, 1000, True),
+                                              (1024, 500, False)}
+    captures, replays, eager, attempts = (b - a for a, b in zip(start, counted()))
+    assert captures == 3 and replays == eager == attempts // 2 and attempts >= 16
+
+
+@pytest.mark.cuda
+def test_track_pose_capture_beside_a_launching_thread(cuda):
+    """The graph pair captured in thread-local mode while another thread
+    launches work and reads it back succeeds, and so does the other
+    thread."""
+    import threading
+    from orbslam3_tpu_torch.engine import track_program as tp
+    stop, errors, rounds = threading.Event(), [], [0]
+    a = torch.randn(256, 256, device=cuda)
+
+    def launch():
+        try:
+            while not stop.is_set():
+                float((a @ a).sum())
+                rounds[0] += 1
+        except Exception as e:  # reported by the assertion below
+            errors.append(e)
+
+    other = threading.Thread(target=launch)
+    other.start()
+    try:
+        while rounds[0] < 3:
+            stop.wait(0.01)
+        frame, R, t = tracking_frame(cuda)
+        graph = _pose_graph(tp.TrackPoseGraphs(), frame)
+        got = tp._own(graph.replay(R, t, 15.0))
+        seen = rounds[0]
+        while rounds[0] < seen + 3 and other.is_alive():
+            stop.wait(0.01)
+    finally:
+        stop.set()
+        other.join(timeout=30)
+    assert not other.is_alive() and not errors, errors
+    _same_attempt(got, graph.eager(R, t, 15.0))
+
+
+@pytest.mark.cuda
+def test_each_replayed_attempt_launches_k1_once_through_its_entry_point(cuda, monkeypatch):
+    """K1 stays outside the graphs: `_build.launches` rises by one an
+    attempt, and a wrapper of `hamming.masked_top2` (as the benchmark's
+    `KernelTap`) sees every launch, each under the tracker's policy, its
+    mask the attempt's own."""
+    from orbslam3_tpu_torch.engine import track_program as tp
+    from orbslam3_tpu_torch.utils import timing
+    real, masks = hamming.masked_top2, []
+
+    def tap(desc_a, desc_b, mask, policy=None):
+        masks.append((policy, mask.sum().item()))
+        return real(desc_a, desc_b, mask, policy=policy)
+
+    monkeypatch.setattr(hamming, "masked_top2", tap)
+    frame, R, t = tracking_frame(cuda, offset=(0.35, 0.0, 0.0))
+    graphs = tp.TrackPoseGraphs()
+    _build.launches.clear()
+    before = timing.counts().get("track.ladder_attempt", 0)
+    for _ in range(2):  # the capture, then replays only
+        assert _ladder(frame, R, t, graphs=graphs)[0]
+    attempts = timing.counts()["track.ladder_attempt"] - before
+    assert attempts >= 4 and len(masks) == attempts
+    assert _build.launches[hamming.KERNEL] == attempts
+    assert _build.launches[f"{hamming.KERNEL}[tracker]"] == attempts
+    assert {p for p, _ in masks} == {"tracker"} and all(n > 0 for _, n in masks)
+    assert masks[:attempts // 2] == masks[attempts // 2:]
 
 
 def _stereo_keypoints(n: int, m: int, seed: int):
